@@ -19,7 +19,17 @@ Phases, in order; any failure exits non-zero:
    (capped at 30 kb) off a haplotype walk; map_files(device="cuda") and
    map_files(device=None) must write the same GAF bytes, both kernels
    must have launched, and at least 80% of eligible reads must stay on
-   the device.
+   the device;
+5. batched map step (minigraph_tpu_torch/ops/pipeline.py) at bench.py's
+   stage shape (B=512 short reads padded to 2048, acap=512, qcap=384,
+   window=32, b_chunk=64, occ_cap=16): make_map_step_v3 with (a) the
+   hash index and (b) the bucketed index of the 5 Mb graph, and (c) the
+   flat join index of a 400 kb graph (below 1e5 keys) plus
+   collect_anchors_flat on the same sketch; the ring chain, bucketed
+   probe and flat probe kernels against their plain versions at these
+   inputs, the card's step against the same step on the CPU on the
+   first 64 reads, (a) against (b) on unflagged reads, each kernel's
+   launches in that run, and the steps' reads/s.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -27,6 +37,7 @@ device.
 """
 from __future__ import annotations
 
+import dataclasses
 import io
 import json
 import subprocess
@@ -41,6 +52,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12    # float32 outside the tensor cores, same sheet
 SKETCH_OPS_PER_BASE = 5 * 11 + 60   # window min + ties at w=11, hash+regs
 CHAIN_OPS_PER_ROW = 40      # comput_sc with the fast log2, per candidate
+PROBE_OPS_PER_PAIR = 18     # the 9-term distance: 9 multiplies, 9 adds
+# bench.py bench_stage's shape of the batched map step
+STEP_B, STEP_PAD = 512, 2048
+STEP_KW = dict(acap=512, qcap=384, window=32, b_chunk=64, occ_cap=16)
 
 
 def log(msg):
@@ -59,6 +74,13 @@ def cuda_time(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def bound(nbytes, ops):
+    """(ms, term) of the least time the card could take: bytes over the
+    memory rate or operations over the float32 rate, the larger."""
+    tb, to = nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S
+    return max(tb, to) * 1e3, "bytes" if tb >= to else "operations"
 
 
 def max_abs_err(a, b):
@@ -185,6 +207,212 @@ def check_chain(front, seqs, pad_len, reps):
             >= ops / SCALAR_OPS_PER_S else "operations"}
 
 
+def tables_to(ji, device):
+    """A copy of index tables on another device."""
+    return dataclasses.replace(ji, **{
+        f.name: getattr(ji, f.name).to(device)
+        for f in dataclasses.fields(ji)
+        if isinstance(getattr(ji, f.name), torch.Tensor)})
+
+
+def float_err(got, ref):
+    return float((got.double() - ref.double()).abs().max()) \
+        if got.numel() else 0.0
+
+
+def check_ring_chain(res, reps):
+    """K4 against its plain version on the step's anchors."""
+    from minigraph_tpu_torch.ops.chain import (lchain_dp_planes,
+                                               lchain_dp_tiled_ref)
+    W, T = STEP_KW["window"], 256
+    planes = res[:5]
+    got = lchain_dp_planes(*planes, window=W, tile=T)
+    t0 = time.perf_counter()
+    ref = lchain_dp_tiled_ref(*planes, 5000, 5000, 500, 0.1827, 0.00913,
+                              window=W, tile=T)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(got, ref)
+    if err:
+        raise AssertionError(f"ring chain kernel differs: {err}")
+    ms = cuda_time(lambda: lchain_dp_planes(*planes, window=W, tile=T), reps)
+    B, A = planes[0].shape
+    n_a = planes[4].to(torch.int64).cpu().numpy()
+    # window rows these anchors visit: anchor i scores min(i, W) rows
+    rows = sum(int(np.minimum(np.arange(n), W).sum()) for n in n_a.tolist())
+    bms, by = bound(B * A * (4 * 4 + 2 * 4), rows * CHAIN_OPS_PER_ROW)
+    log(f"ring chain ({B}, {A}, W={W}, T={T}): bitwise equal, n_a mean "
+        f"{n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms, plain "
+        f"{plain:.1f} ms, bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def probe_library(sq, km, ke, rows=16384):
+    """The two-product formulation in float32 (TF32 off): the yardstick
+    of the probe kernels, never called by the port."""
+    if torch.backends.cuda.matmul.allow_tf32:
+        raise AssertionError("TF32 would break the D == 0 test")
+    nb, _, KB = km.shape
+    _, B, SB = sq.shape
+    qb = SB // nb
+    q = sq.reshape(9, B, nb, qb).permute(2, 1, 3, 0).reshape(nb, B * qb, 9)
+    out = torch.empty((nb, ke.shape[1], B * qb), device=sq.device)
+    for v in range(nb):
+        for r0 in range(0, B * qb, rows):
+            ind = (q[v, r0: r0 + rows] @ km[v] == 0).float()
+            out[v, :, r0: r0 + rows] = ke[v] @ ind.T
+    return out
+
+
+def check_probe(sq, km, ke, present, flat, reps):
+    """K5 (flat=False) or K6 against its plain version; present slots
+    bitwise, empty ones within KB * 2^-24 relative."""
+    from minigraph_tpu_torch.ops import probe
+    kern = probe.probe_flat if flat else probe.probe_bucketed
+    ref_fn = probe.probe_flat_ref if flat else probe.probe_bucketed_ref
+    nb, _, KB = km.shape
+    got = kern(sq, km, ke)
+    t0 = time.perf_counter()
+    ref = ref_fn(sq, km, ke)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    if not torch.equal(got[:, present], ref[:, present]):
+        raise AssertionError("probe kernel differs on present slots")
+    empty_rel = 0.0
+    if (~present).any():
+        a, b = got[:, ~present].double(), ref[:, ~present].double()
+        empty_rel = float(((a - b).abs() / b.abs().clamp(min=1)).max())
+        if empty_rel > KB * 2.0 ** -24:
+            raise AssertionError(f"probe kernel empty slots off by "
+                                 f"{empty_rel:.3g} relative")
+    err = float_err(got, ref)
+    ms = cuda_time(lambda: kern(sq, km, ke), reps)
+    lib = cuda_time(lambda: probe_library(sq, km, ke), 1)
+    _, B, SB = sq.shape
+    EXT = ke.shape[1]
+    n_present = int(present.sum())
+    matches = int((got[1][present] > 0).sum())
+    nbytes = 4 * (sq.numel() + km.numel() + ke.numel() + EXT * B * SB)
+    # present slots against every key of their bucket; an empty slot's
+    # distance to every key is zero by construction, so it costs its
+    # bucket's column sum, counted once per bucket
+    ops = (PROBE_OPS_PER_PAIR * n_present * KB + 2 * EXT * matches
+           + (nb * EXT * KB if n_present < B * SB else 0))
+    bms, by = bound(nbytes, ops)
+    name = "flat" if flat else "bucketed"
+    log(f"{name} probe (9, {B}, {SB}) x ({nb}, 9, {KB}): present slots "
+        f"bitwise equal ({n_present} present, {matches} matched), empty "
+        f"slots max rel err {empty_rel:.3g}; kernel {ms:.4f} ms, plain "
+        f"{plain:.1f} ms, two-matmul library {lib:.3f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "library_ms": lib}
+
+
+def step_rate(step, codes, lens):
+    """reads/s of a map step as bench.py bench_stage times it: the mean
+    of 3 synchronised calls after a warm-up call."""
+    step(codes, lens)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(3):
+        step(codes, lens)
+    torch.cuda.synchronize()
+    return codes.shape[0] / ((time.perf_counter() - t0) / 3)
+
+
+def step_phase(gi, hash_tables, reads, flat_gi, flat_reads, kernels):
+    """Phase 5: the batched map step at bench.py's stage shape."""
+    from minigraph_tpu_torch.ops.anchors import (JoinIndex,
+                                                 collect_anchors_flat,
+                                                 collect_anchors_hash,
+                                                 flat_queries, step_queries)
+    from minigraph_tpu_torch.ops.anchors_bucketed import (BucketedJoinIndex,
+                                                          spread_queries)
+    from minigraph_tpu_torch.ops.pipeline import make_map_step_v3
+    from minigraph_tpu_torch.ops.sketch import encode_batch, sketch_planes
+
+    kw = {k: v for k, v in STEP_KW.items() if k != "b_chunk"}
+    w, k = gi.w, gi.k
+    t0 = time.perf_counter()
+    bkt = BucketedJoinIndex.from_host(gi, STEP_KW["occ_cap"], "cuda")
+    flat = JoinIndex.from_host(flat_gi, STEP_KW["occ_cap"], "cuda")
+    nb, _, KB = bkt.keymat.shape
+    log(f"step tables in {time.perf_counter() - t0:.1f} s: bucketed nb={nb}"
+        f" qb=24 KB={KB} (keyext {bkt.keyext.numel() * 4 / 2**20:.1f} MiB);"
+        f" flat graph {len(flat_gi.keys)} keys, Kpad={flat.km_p.shape[2]}")
+    if len(flat_gi.keys) >= 100_000:
+        raise AssertionError("the flat graph must stay below 1e5 keys")
+    tables = {"a": hash_tables, "b": bkt, "c": flat}
+    steps = {n: make_map_step_v3(t, w, k, **STEP_KW)
+             for n, t in tables.items()}
+    def encode(r):
+        return [torch.from_numpy(a).cuda()
+                for a in encode_batch(r, pad_to=STEP_PAD)]
+
+    enc_5m = encode(reads)
+    batch = {"a": enc_5m, "b": enc_5m, "c": encode(flat_reads)}
+    max_occ = 50            # make_map_step_v3's default
+
+    # ---- the phase's path, with the launch counts
+    kernels.reset_launches()
+    out = {n: steps[n](*batch[n]) for n in steps}
+    sp_c = sketch_planes(*batch["c"], w, k)
+    flat_res = collect_anchors_flat(flat, *sp_c[:6], max_occ, kw["occ_cap"],
+                                    qcap=kw["qcap"], acap=kw["acap"])
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    for name in ("sketch", "chain_ring", "probe_bucketed", "probe_flat"):
+        if launches[name] <= 0:
+            raise AssertionError(f"{name} kernel not launched by the step")
+    for n, o in out.items():
+        for key, v in o.items():
+            if v.shape[0] != STEP_B:
+                raise AssertionError(f"step ({n}) {key}: {tuple(v.shape)}")
+        if int(o["n_anchors"].sum()) == 0:
+            raise AssertionError(f"step ({n}) found no anchors")
+    log(f"step launches {launches}; flat collect n_a mean "
+        f"{flat_res[4].double().mean():.1f}")
+
+    # ---- the card's step against the CPU's, first 64 reads
+    for n, t in tables.items():
+        codes, lens = batch[n]
+        cpu = make_map_step_v3(tables_to(t, "cpu"), w, k, **STEP_KW)(
+            codes[:64].cpu(), lens[:64].cpu())
+        for key, v in cpu.items():
+            if not torch.equal(v, out[n][key][:64].cpu()):
+                raise AssertionError(f"step ({n}) {key}: card != CPU")
+    # hashed and bucketed joins are exact over the same index
+    ok = ~(out["a"]["overflow"] | out["b"]["overflow"])
+    for key in ("n_anchors", "f", "p"):
+        if not torch.equal(out["a"][key][ok], out["b"][key][ok]):
+            raise AssertionError(f"hash and bucketed steps differ: {key}")
+    log(f"step: card == CPU on 64 reads for (a) hash, (b) bucketed, (c) "
+        f"flat; (a) == (b) on {int(ok.sum())}/{STEP_B} unflagged reads")
+
+    # ---- kernels against their plain versions at these inputs
+    sp = sketch_planes(*enc_5m, w, k)
+    res = collect_anchors_hash(hash_tables, *sp[:6], max_occ, kw["occ_cap"],
+                               qcap=kw["qcap"], acap=kw["acap"])
+    k4 = check_ring_chain(res, reps=20)
+    sf, _, _ = spread_queries(*sp[:6], nb, qcap=kw["qcap"])
+    k5 = check_probe(sf[:9], bkt.keymat, bkt.keyext, sf[8] > 0, False,
+                     reps=10)
+    qhh, qhl, _, _, qvalid = step_queries(*sp_c[:6], kw["qcap"])
+    sq_c = flat_queries(qhh, qhl, qvalid)
+    k6 = check_probe(sq_c, flat.km_p, flat.ke_p, sq_c[8] != 0, True,
+                     reps=5)
+
+    rates = {}
+    for n in steps:
+        rates[n] = step_rate(steps[n], *batch[n])
+    log(f"step reads/s (mean of 3 after a warm-up): (a) hash "
+        f"{rates['a']:.1f}, (b) bucketed {rates['b']:.1f}, (c) flat "
+        f"{rates['c']:.1f}")
+    return launches, k4, k5, k6
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -258,7 +486,8 @@ def main() -> int:
     k2_long = check_chain(
         front, [s for _, s in long_ if 8192 < len(s) <= 32768], 32768,
         reps=2)
-    del front, gi, g
+    hash_tables = front.ji      # the cuckoo tables, reused by phase 5
+    del front, g
 
     # ---- 4. main path
     n_reads = len(short) + len(long_)
@@ -300,6 +529,17 @@ def main() -> int:
     for name, a, b in (("8 kb", k1_mid, k2_mid), ("32 kb", k1_long, k2_long)):
         log(f"{name} bucket: sketch {json.dumps(a)}; chain {json.dumps(b)}")
 
+    # ---- 5. batched map step
+    flat_ref = make_reference(400_000, seed=47)
+    flat_hap = write_bubble_rgfa(flat_ref, 48, str(work / "flat400k.gfa"))
+    flat_gi = build_index(read_gfa(str(work / "flat400k.gfa")), io_.k,
+                          io_.w, mo)
+    flat_reads = simulate_reads([flat_hap], STEP_B, seed=49, mean_len=1300,
+                                min_len=800, max_len=1900)
+    step_launches, k4, k5, k6 = step_phase(
+        gi, hash_tables, [s for _, s in short[:STEP_B]], flat_gi,
+        [s for _, s in flat_reads], kernels)
+
     entries = [
         dict(name="sketch", route="cuda",
              source="minigraph_tpu_torch/csrc/sketch.cu",
@@ -309,6 +549,18 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/chain_exact.cu",
              replaces="minigraph_tpu/ops/chain_exact_pallas.py:45",
              launches=launches["chain_exact"], library_ms=None, **k2),
+        dict(name="chain_ring", route="cuda",
+             source="minigraph_tpu_torch/csrc/chain_ring.cu",
+             replaces="minigraph_tpu/ops/chain_pallas.py:41",
+             launches=step_launches["chain_ring"], **k4),
+        dict(name="probe_bucketed", route="cuda",
+             source="minigraph_tpu_torch/csrc/probe.cu",
+             replaces="minigraph_tpu/ops/probe_pallas.py:34",
+             launches=step_launches["probe_bucketed"], **k5),
+        dict(name="probe_flat", route="cuda",
+             source="minigraph_tpu_torch/csrc/probe.cu",
+             replaces="minigraph_tpu/ops/probe_pallas.py:110",
+             launches=step_launches["probe_flat"], **k6),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,11 +1,11 @@
 """Build, load and launch the port's hand-written CUDA kernels.
 
-Each source in csrc/ has a plain C entry point that launches its kernel
-on a given stream and returns cudaGetLastError().  The sources are
-compiled on the machine with the card -- one nvcc per source, all
-started together -- and linked into build/kernels/libmgt_cuda.so,
-which is loaded with ctypes at first use (nothing is built or loaded
-when this module is imported).
+Each source in csrc/ has plain C entry points (one per registered
+kernel) that launch their kernels on a given stream and return
+cudaGetLastError().  The sources are compiled on the machine with the
+card -- one nvcc per source, all started together -- and linked into
+build/kernels/libmgt_cuda.so, which is loaded with ctypes at first use
+(nothing is built or loaded when this module is imported).
 
     nvcc -gencode arch=compute_90a,code=sm_90a -O3 --fmad=false
          -std=c++17 -Xcompiler -fPIC -c csrc/<name>.cu
@@ -44,6 +44,10 @@ KERNELS = {
     "sketch": ("sketch.cu", "mgt_cuda_sketch_planes", "ppiiiipppppppp"),
     "chain_exact": ("chain_exact.cu", "mgt_cuda_chain_exact",
                     "pppppiiiiiiiiiffpppp"),
+    "chain_ring": ("chain_ring.cu", "mgt_cuda_chain_ring",
+                   "pppppiiiiiiffpp"),
+    "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiipp"),
+    "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiipp"),
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -85,7 +89,7 @@ def build() -> float:
             return 0.0
         nvcc = _nvcc()
         procs = []
-        for src, _, _ in KERNELS.values():
+        for src in sorted({src for src, _, _ in KERNELS.values()}):
             obj = BUILD_DIR / (Path(src).stem + ".o")
             cmd = [nvcc, *NVCC_FLAGS, "-Xptxas", "-v", "-c",
                    str(CSRC / src), "-o", str(obj)]

@@ -1,8 +1,9 @@
 """Seed-hit collection from sketch planes (collect_seed_hits semantics,
-map-algo.c:58-192, including emission order).
+map-algo.c:58-192).
 
-Port of the JAX package's two exact collectors, which the device front
-chooses between by index size:
+Ports of the JAX package's collectors.  The two exact ones, which the
+device front chooses between by index size, keep the reference's
+emission order:
 
 * `collect_anchors_exact` (ops/anchors_jax.py) with `JoinIndex`: the
   JAX version probes with an equality join on the matrix unit; here the
@@ -12,12 +13,27 @@ chooses between by index size:
 * `collect_anchors_exact_hash` (ops/anchors_hash.py) with
   `HashJoinIndex`: the two-choice cuckoo probe, with the same tables.
 
-Neither is a Pallas kernel in the JAX package; both are plain PyTorch
-on whatever device the planes live on.  Planes hold u32 values in
-int64 tensors (ops/u32.py); padding is U32MAX.  The anchor sorts are
-stable sorts on the unsigned (axh, axl) key, packed into one int64
-(axh = rid<<1|rev stays below 2**31), so equal keys keep generation
-order exactly as the JAX sorts' is_stable=True does.
+The three of the batched map step (ops/pipeline.py) take the main
+plane's emissions before the tie plane's, flag tandems by main-plane
+adjacency and every tie as a tandem, and raise only the qcap/acap
+overflow flag:
+
+* `collect_anchors_join` (anchors_jax.py) with `JoinIndex`, probed by
+  the same binary search;
+* `collect_anchors_hash` (anchors_hash.py) with `HashJoinIndex`;
+* `collect_anchors_flat` (anchors_jax.py
+  `collect_anchors_flat_pallas_traced`) with `JoinIndex`: the flat
+  probe (ops/probe.py, a CUDA kernel on the card) over the padded
+  km_p/ke_p tables.
+
+Apart from that probe, all are plain PyTorch on whatever device the
+planes live on.  Planes hold u32 values in int64 tensors (ops/u32.py);
+padding is U32MAX.  The band expansion from per-emission hit lists to
+anchor slots is a scatter and a running max (the JAX join's one-hot
+matmul gives the same values).  The anchor sorts are stable sorts on
+the unsigned (axh, axl) key, packed into one int64 (axh = rid<<1|rev
+stays below 2**31), so equal keys keep generation order exactly as the
+JAX sorts' is_stable=True does.
 """
 from __future__ import annotations
 
@@ -43,10 +59,13 @@ def _seg_len(gi) -> np.ndarray:
 
 @dataclass
 class JoinIndex:
-    """Flat-join tables: the JAX JoinIndex's keymat/keyext, plus the
-    sorted keys recovered from keymat for the binary-search probe."""
+    """Flat-join tables: the JAX JoinIndex's keymat/keyext and its padded
+    km_p/ke_p for the flat probe, plus the sorted keys recovered from
+    keymat for the binary-search probe."""
     keymat: torch.Tensor   # (9, K) f32 equality-join matrix
     keyext: torch.Tensor   # (K, 2 + 3*occ_cap) f32 payload rows
+    km_p: torch.Tensor     # (1, 9, Kpad) keymat, padding never matches
+    ke_p: torch.Tensor     # (1, EXT, Kpad) keyext transposed, padded
     keys: torch.Tensor     # (K,) int64 sorted minimizers
     cols: torch.Tensor     # (K,) keyext row of each sorted key
     occ_cap: int
@@ -92,19 +111,29 @@ class JoinIndex:
         return {"keymat": keymat, "keyext": ext}
 
     @classmethod
-    def from_host(cls, gi, occ_cap: int = 16, device="cpu") -> "JoinIndex":
+    def from_host(cls, gi, occ_cap: int = 16, device="cuda") -> "JoinIndex":
         return cls.from_arrays(cls.host_arrays(gi, occ_cap), device)
 
     @classmethod
     def from_arrays(cls, arrays: dict, device) -> "JoinIndex":
         keymat = np.array(arrays["keymat"], dtype=np.float32)
         keyext = np.array(arrays["keyext"], dtype=np.float32)
+        K = keymat.shape[1]
+        # padded as ops/anchors_jax.py JoinIndex.from_host pads them
+        kpad = max(256, -(-K // 256) * 256)
+        km_p = np.zeros((1, 9, kpad), np.float32)
+        km_p[0, 8, :] = 1.0
+        km_p[0, :, :K] = keymat
+        ke_p = np.zeros((1, keyext.shape[1], kpad), np.float32)
+        ke_p[0, :, :K] = keyext.T
         # keymat row 2i+1 holds -2 * (9-bit chunk i) of each key
         ch = np.rint(-keymat[1:8:2] / 2).astype(np.int64)      # (4, K)
         keys = ch[0] | (ch[1] << 9) | (ch[2] << 18) | (ch[3] << 27)
         order = np.argsort(keys, kind="stable")
         return cls(keymat=torch.from_numpy(keymat).to(device),
                    keyext=torch.from_numpy(keyext).to(device),
+                   km_p=torch.from_numpy(km_p).to(device),
+                   ke_p=torch.from_numpy(ke_p).to(device),
                    keys=torch.from_numpy(keys[order]).to(device),
                    cols=torch.from_numpy(order.astype(np.int64)).to(device),
                    occ_cap=(keyext.shape[1] - 2) // 3)
@@ -187,7 +216,7 @@ class HashJoinIndex:
                 "hbits": hbits}
 
     @classmethod
-    def from_host(cls, gi, occ_cap: int = 16, device="cpu"):
+    def from_host(cls, gi, occ_cap: int = 16, device="cuda"):
         return cls.from_arrays(cls.host_arrays(gi), occ_cap, device)
 
     @classmethod
@@ -202,11 +231,15 @@ class HashJoinIndex:
 def tables_from_numpy(kind: str, arrays: dict, device, occ_cap: int = 16):
     """The port's index tables from the JAX package's, as numpy arrays:
     kind "join" takes JoinIndex keymat/keyext, kind "hash" takes
-    HashJoinIndex tag/pay/p_rid/p_sel/hbits."""
+    HashJoinIndex tag/pay/p_rid/p_sel/hbits, kind "bucketed" takes
+    BucketedJoinIndex keymat/keyext."""
     if kind == "join":
         return JoinIndex.from_arrays(arrays, device)
     if kind == "hash":
         return HashJoinIndex.from_arrays(arrays, occ_cap, device)
+    if kind == "bucketed":
+        from .anchors_bucketed import BucketedJoinIndex
+        return BucketedJoinIndex.from_arrays(arrays, device)
     raise ValueError(f"unknown table kind {kind!r}")
 
 
@@ -294,6 +327,107 @@ def _dup_flag(axh, key):
     return ((key[:, 1:] == key[:, :-1]) & (axh[:, 1:] != U32MAX)).any(1)
 
 
+def join_planes(hh, hl, meta, t_hh, t_hl, t_meta):
+    """The step collectors' query planes (ops/anchors_jax.py
+    collect_anchors_join): the main plane's slots, then the tie plane's;
+    tandem = a main emission whose hash equals the previous or the next
+    main emission's, and every tie.  Returns (chh, chl, cmeta, cemit),
+    each (B, 2S)."""
+    emitted = meta != U32MAX
+    t_emitted = t_meta != U32MAX
+    tand = _tandem_flags(hh, hl, emitted)
+    meta_t = torch.where(tand, meta | (1 << 31), meta)
+    t_meta_t = torch.where(t_emitted, t_meta | (1 << 31), t_meta)
+    return (torch.cat([hh, t_hh], 1), torch.cat([hl, t_hl], 1),
+            torch.cat([meta_t, t_meta_t], 1),
+            torch.cat([emitted, t_emitted], 1))
+
+
+def join_features(qhh, qhl):
+    """The 9 equality-join features of each query (ops/anchors_jax.py):
+    c^2 and c for the four 9-bit chunks of the 36-bit minimizer, then 1.
+    Every value is an integer below 2^18, exact in float32."""
+    f32 = torch.float32
+    feats = []
+    for i in range(3):
+        c = ((qhl >> (9 * i)) & 0x1FF).to(f32)
+        feats += [c * c, c]
+    c3 = (((qhh << 5) | (qhl >> 27)) & 0x1FF).to(f32)
+    return feats + [c3 * c3, c3, torch.ones_like(c3)]
+
+
+def _join_probe(ji: JoinIndex, qhh, qhl, qvalid, occ_cap):
+    """The flat join's match, found by binary search over the sorted
+    keys: (found, ext) with ext the matched key's keyext row."""
+    B, qcap = qhh.shape
+    m = ((qhh & 0xF) << 32) | qhl
+    K = ji.keys.numel()
+    if not K:
+        return (torch.zeros_like(qvalid),
+                torch.zeros((B, qcap, 2 + 3 * occ_cap), dtype=torch.float32,
+                            device=qhh.device))
+    at = torch.clamp(torch.searchsorted(ji.keys, m), max=K - 1)
+    return qvalid & (ji.keys[at] == m), ji.keyext[ji.cols[at]]
+
+
+def _hash_probe(hi: HashJoinIndex, qhh, qhl, qvalid):
+    """Two cuckoo choices -> (found, cnt, start)."""
+    sh = 32 - hi.hbits
+    s1 = ((_mul32(qhl, MUL1A) + _mul32(qhh, MUL1B)) & U32MAX) >> sh
+    s2 = ((_mul32(qhl, MUL2A) + _mul32(qhh, MUL2B)) & U32MAX) >> sh
+    t1, y1 = hi.tag[s1], hi.pay[s1]
+    t2, y2 = hi.tag[s2], hi.pay[s2]
+    hit1 = (t1 == qhl) & ((y1 & 3) == qhh) & (y1 != U32MAX)
+    hit2 = (t2 == qhl) & ((y2 & 3) == qhh) & (y2 != U32MAX)
+    payv = torch.where(hit1, y1, y2)
+    found = (hit1 | hit2) & qvalid
+    return (found, torch.where(found, (payv >> 2) & 0xFF, 0),
+            torch.where(found, payv >> 10, 0))
+
+
+def expand_bands(occ, acap):
+    """Band expansion: anchor slot r of a read belongs to emission q iff
+    offs_q <= r < offs_q + occ_q, offs the exclusive prefix sum of occ.
+    Scatter q+1 at offs_q, then a running max.  Emissions at
+    offs >= acap belong to reads already flagged (n_tot > acap); the
+    clamp keeps them out of the next read's slots.  Returns (qidx, rank,
+    a_valid, n_a, n_tot), the first three (B, acap)."""
+    B, qcap = occ.shape
+    dev = occ.device
+    offs = torch.cumsum(occ, 1) - occ
+    n_tot = occ.sum(1)
+    n_a = torch.clamp(n_tot, max=acap).to(torch.int32)
+    live = (occ > 0) & (offs < acap)
+    rowb = torch.arange(B, device=dev)[:, None]
+    flat_i = torch.where(live, rowb * acap + offs, B * acap)
+    q1 = torch.arange(1, qcap + 1, device=dev).expand(B, qcap)
+    mark = torch.zeros(B * acap + 1, dtype=torch.int64, device=dev)
+    mark.scatter_reduce_(0, flat_i.reshape(-1), q1.reshape(-1), "amax")
+    mark = mark[: B * acap].reshape(B, acap)
+    qidx = torch.clamp(torch.cummax(mark, 1).values - 1, min=0)
+    a_iota = torch.arange(acap, device=dev)[None, :]
+    rank = a_iota - torch.gather(offs, 1, qidx)
+    return qidx, rank, a_iota < n_a[:, None], n_a, n_tot
+
+
+def pack_anchors(rid_strand, rpos, base, occ_b, qmeta, valid, acap):
+    """Anchor planes from per-anchor hits, sorted by x: tpos = rpos on
+    the forward strand, base + span on the reverse (base =
+    seg_len - rpos - 2); slots outside `valid` are padding.  Returns
+    (axh, axl, ayh, ayl, key) as _sort_anchors."""
+    z, qpos, span, tandem = _unpack_qmeta(qmeta)
+    rev = (rid_strand & 1) ^ z
+    tpos = torch.where(rev == 0, rpos, base + span)
+
+    def pad(a):
+        return torch.where(valid, a, U32MAX)
+
+    return _sort_anchors(pad(((rid_strand >> 1) << 1) | rev),
+                         pad(tpos & U32MAX),
+                         pad((occ_b << 24) | (tandem << 10) | span),
+                         pad(qpos), acap)
+
+
 def collect_anchors_exact(ji: JoinIndex, hh, hl, meta, t_hh, t_hl, t_meta,
                           max_occ: int, occ_cap: int, qcap: int = 512,
                           acap: int = 2048) -> dict:
@@ -313,16 +447,7 @@ def collect_anchors_exact(ji: JoinIndex, hh, hl, meta, t_hh, t_hl, t_meta,
 
     # probe: the join matches a query iff its 36-bit chunked value equals
     # a key; binary search over the sorted keys finds the same row
-    m = ((qhh & 0xF) << 32) | qhl
-    K = ji.keys.numel()
-    if K:
-        at = torch.clamp(torch.searchsorted(ji.keys, m), max=K - 1)
-        found = qvalid & (ji.keys[at] == m)
-        ext = ji.keyext[ji.cols[at]]                   # (B, qcap, EXT)
-    else:
-        found = torch.zeros_like(qvalid)
-        ext = torch.zeros((B, qcap, 2 + 3 * occ_cap), dtype=torch.float32,
-                          device=dev)
+    found, ext = _join_probe(ji, qhh, qhl, qvalid, occ_cap)
     cnt = torch.where(found, ext[..., 0].to(torch.int64), 0)
     keep = found & (cnt < max_occ)
     occ = torch.where(keep, torch.clamp(cnt, max=occ_cap), 0)
@@ -336,23 +461,16 @@ def collect_anchors_exact(ji: JoinIndex, hh, hl, meta, t_hh, t_hl, t_meta,
     # direct (query, slot) grid
     slot_ok = torch.arange(occ_cap, device=dev)[None, None, :] \
         < occ[..., None]
-    rid_strand = ext[..., 2: 2 + occ_cap].to(torch.int64)
-    rpos = ext[..., 2 + occ_cap: 2 + 2 * occ_cap].to(torch.int64)
-    base = ext[..., 2 + 2 * occ_cap: 2 + 3 * occ_cap].to(torch.int64)
-    z, qpos, span, tandem = _unpack_qmeta(qmeta[..., None])
-    rev = (rid_strand & 1) ^ z
-    tpos = torch.where(rev == 0, rpos, base + span)
-    axh = ((rid_strand >> 1) << 1) | rev
-    axl = tpos & U32MAX
-    ayh = (occ_byte[..., None] << 24) | (tandem << 10) | span
-    ayl = qpos
 
     def grid(a):
-        return torch.where(slot_ok, a, U32MAX).reshape(B, qcap * occ_cap)
+        return a.expand(B, qcap, occ_cap).reshape(B, qcap * occ_cap)
 
-    axh, axl, ayh, ayl, key = _sort_anchors(
-        grid(axh), grid(axl), grid(ayh.expand_as(axh)),
-        grid(ayl.expand_as(axh)), acap)
+    axh, axl, ayh, ayl, key = pack_anchors(
+        grid(ext[..., 2: 2 + occ_cap].to(torch.int64)),
+        grid(ext[..., 2 + occ_cap: 2 + 2 * occ_cap].to(torch.int64)),
+        grid(ext[..., 2 + 2 * occ_cap: 2 + 3 * occ_cap].to(torch.int64)),
+        grid(occ_byte[..., None]), grid(qmeta[..., None]), grid(slot_ok),
+        acap)
     dup = _dup_flag(axh, key)
     return {"axh": axh, "axl": axl, "ayh": ayh, "ayl": ayl, "n_a": n_a,
             "overflow": q_overflow | a_overflow | trunc | dup,
@@ -366,87 +484,148 @@ def _mul32(a, c: int):
     return ((a & 0xFFFF) * c + ((((a >> 16) * c) & 0xFFFF) << 16)) & U32MAX
 
 
+def _hash_anchors(hi: HashJoinIndex, qmeta, start, occ, occ_byte, acap):
+    """Expansion and per-anchor position fetch of the hash collectors:
+    (axh, axl, ayh, ayl, key, n_a, n_tot)."""
+    qidx, rank, a_valid, n_a, n_tot = expand_bands(occ, acap)
+
+    def take_q(a):
+        return torch.gather(a, 1, qidx)
+
+    idx = torch.where(a_valid, take_q(start) + rank, 0)
+    p_rid = hi.p_rid if hi.p_rid.numel() else \
+        torch.zeros(1, dtype=torch.int64, device=occ.device)
+    rid_strand = p_rid[idx]
+    qmeta_a = take_q(qmeta)
+    # p_sel interleaves [rpos, base]: rev picks the coordinate
+    rev = (rid_strand & 1) ^ (qmeta_a & 1)
+    val = u32.as_i32(hi.p_sel[(idx << 1) | rev]).to(torch.int64)
+    return (*pack_anchors(rid_strand, val, val, take_q(occ_byte), qmeta_a,
+                          a_valid, acap), n_a, n_tot)
+
+
 def collect_anchors_exact_hash(hi: HashJoinIndex, hh, hl, meta, t_hh, t_hl,
                                t_meta, max_occ: int, occ_cap: int,
                                qcap: int = 512, acap: int = 2048) -> dict:
     """Byte-parity anchor collection with the cuckoo-hash tables
     (ops/anchors_hash.py collect_anchors_exact_hash, default path).
     Same contract as collect_anchors_exact."""
-    B = hh.shape[0]
-    dev = hh.device
     chh, chl, cmeta, cemit = merge_planes(hh, hl, meta, t_hh, t_hl, t_meta)
     qhh, qhl, qmeta, n_q, qvalid = _compact_queries(chh, chl, cmeta, cemit,
                                                     qcap)
     q_overflow = n_q > qcap
-
-    # probe: two cuckoo choices
-    sh = 32 - hi.hbits
-    s1 = ((_mul32(qhl, MUL1A) + _mul32(qhh, MUL1B)) & U32MAX) >> sh
-    s2 = ((_mul32(qhl, MUL2A) + _mul32(qhh, MUL2B)) & U32MAX) >> sh
-    t1, y1 = hi.tag[s1], hi.pay[s1]
-    t2, y2 = hi.tag[s2], hi.pay[s2]
-    hit1 = (t1 == qhl) & ((y1 & 3) == qhh) & (y1 != U32MAX)
-    hit2 = (t2 == qhl) & ((y2 & 3) == qhh) & (y2 != U32MAX)
-    payv = torch.where(hit1, y1, y2)
-    found = (hit1 | hit2) & qvalid
-    cnt = torch.where(found, (payv >> 2) & 0xFF, 0)
-    start = torch.where(found, payv >> 10, 0)
-
+    found, cnt, start = _hash_probe(hi, qhh, qhl, qvalid)
     keep = found & (cnt < max_occ)
     occ = torch.where(keep, torch.clamp(cnt, max=occ_cap), 0)
     occ_byte = torch.where(keep, cnt, 0)      # table caps at 255
-    offs = torch.cumsum(occ, 1) - occ
-    n_tot = occ.sum(1)
-    n_a = torch.clamp(n_tot, max=acap).to(torch.int32)
-    a_overflow = n_tot > acap
     trunc = (keep & (cnt > occ_cap)).any(1)
     if max_occ > 255:
         trunc = trunc | (found & (cnt == 255)).any(1)
+    axh, axl, ayh, ayl, key, n_a, n_tot = _hash_anchors(
+        hi, qmeta, start, occ, occ_byte, acap)
+    dup = _dup_flag(axh, key)
+    return {"axh": axh, "axl": axl, "ayh": ayh, "ayl": ayl, "n_a": n_a,
+            "overflow": q_overflow | (n_tot > acap) | trunc | dup,
+            "q_cnt": torch.where(qvalid, cnt, 0),
+            "q_meta": torch.where(qvalid, qmeta, U32MAX),
+            "n_q": n_q}
 
-    # band expansion: anchor slot r belongs to emission q iff
-    # offs_q <= r < offs_q + occ_q; scatter q+1 at offs_q, running max.
-    # Emissions at offs >= acap belong to reads already flagged; the
-    # clamp keeps them out of the next read's slots.
-    live = (occ > 0) & (offs < acap)
-    rowb = torch.arange(B, device=dev)[:, None]
-    flat_i = torch.where(live, rowb * acap + offs, B * acap)
-    q1 = torch.arange(1, qcap + 1, device=dev).expand(B, qcap)
-    mark = torch.zeros(B * acap + 1, dtype=torch.int64, device=dev)
-    mark.scatter_reduce_(0, flat_i.reshape(-1), q1.reshape(-1), "amax")
-    mark = mark[: B * acap].reshape(B, acap)
-    qidx = torch.clamp(torch.cummax(mark, 1).values - 1, min=0)
+
+def step_queries(hh, hl, meta, t_hh, t_hl, t_meta, qcap):
+    """The step collectors' emitted queries in order, compacted to qcap:
+    (qhh, qhl, qmeta, n_q, qvalid), the first three (B, qcap)."""
+    chh, chl, cmeta, cemit = join_planes(hh, hl, meta, t_hh, t_hl, t_meta)
+    return _compact_queries(chh, chl, cmeta, cemit, qcap)
+
+
+def flat_queries(qhh, qhl, qvalid):
+    """The flat probe's (9, B, qcap) queries: the join features, -1 on
+    unused slots (no key matches them)."""
+    return torch.stack([torch.where(qvalid, f, -1.0)
+                        for f in join_features(qhh, qhl)])
+
+
+def collect_anchors_join(ji: JoinIndex, hh, hl, meta, t_hh, t_hl, t_meta,
+                         max_occ: int, occ_cap: int, qcap: int = 512,
+                         acap: int = 2048):
+    """Anchor collection of the batched map step with the flat-join
+    tables (ops/anchors_jax.py collect_anchors_join, return_planes).
+
+    Returns (axh, axl, ayh, ayl, n_a, overflow): (B, acap) anchor planes
+    sorted by x, anchors kept in generation order up to acap before the
+    sort; overflow = more than qcap emissions or acap anchors."""
+    qhh, qhl, qmeta, n_q, qvalid = step_queries(hh, hl, meta, t_hh, t_hl,
+                                                 t_meta, qcap)
+    found, ext = _join_probe(ji, qhh, qhl, qvalid, occ_cap)
+    cnt = ext[..., 0].to(torch.int64)
+    keep = found & (cnt < max_occ)
+    occ = torch.where(keep, torch.clamp(cnt, max=occ_cap), 0)
+    occ_byte = torch.where(keep, torch.clamp(cnt, max=255), 0)
+    qidx, rank, a_valid, n_a, n_tot = expand_bands(occ, acap)
 
     def take_q(a):
         return torch.gather(a, 1, qidx)
 
-    a_iota = torch.arange(acap, device=dev)[None, :]
-    a_valid = a_iota < n_a[:, None]
-    rank = a_iota - take_q(offs)
-    occ_b = take_q(occ_byte)
-    qmeta_a = take_q(qmeta)
-    idx = torch.where(a_valid, take_q(start) + rank, 0)
+    # each anchor reads its hit slot from its emission's payload row
+    slot = torch.where(a_valid, rank, 0)[..., None]
+    rows = torch.gather(ext, 1, qidx[..., None].expand(-1, -1, ext.shape[2]))
 
-    p_rid = hi.p_rid if hi.p_rid.numel() else \
-        torch.zeros(1, dtype=torch.int64, device=dev)
-    rid_strand = p_rid[idx]
-    z, qpos, span, tandem = _unpack_qmeta(qmeta_a)
-    rev = (rid_strand & 1) ^ z
-    val = u32.as_i32(hi.p_sel[(idx << 1) | rev]).to(torch.int64)
-    tpos = torch.where(rev == 0, val, val + span)
+    def hit(col0):
+        return torch.gather(rows, 2, col0 + slot)[..., 0].to(torch.int64)
 
-    axh = ((rid_strand >> 1) << 1) | rev
-    axl = tpos & U32MAX
-    ayh = (occ_b << 24) | (tandem << 10) | span
-    ayl = qpos
+    axh, axl, ayh, ayl, _ = pack_anchors(
+        hit(2), hit(2 + occ_cap), hit(2 + 2 * occ_cap), take_q(occ_byte),
+        take_q(qmeta), a_valid, acap)
+    return axh, axl, ayh, ayl, n_a, (n_q > qcap) | (n_tot > acap)
 
-    def pad(a):
-        return torch.where(a_valid, a, U32MAX)
 
-    axh, axl, ayh, ayl, key = _sort_anchors(pad(axh), pad(axl), pad(ayh),
-                                            pad(ayl), acap)
-    dup = _dup_flag(axh, key)
-    return {"axh": axh, "axl": axl, "ayh": ayh, "ayl": ayl, "n_a": n_a,
-            "overflow": q_overflow | a_overflow | trunc | dup,
-            "q_cnt": torch.where(qvalid, cnt, 0),
-            "q_meta": torch.where(qvalid, qmeta, U32MAX),
-            "n_q": n_q}
+def collect_anchors_hash(hi: HashJoinIndex, hh, hl, meta, t_hh, t_hl,
+                         t_meta, max_occ: int, occ_cap: int, qcap: int = 512,
+                         acap: int = 2048):
+    """Anchor collection of the batched map step with the cuckoo-hash
+    tables (ops/anchors_hash.py collect_anchors_hash, return_planes);
+    contract of collect_anchors_join."""
+    qhh, qhl, qmeta, n_q, qvalid = step_queries(hh, hl, meta, t_hh, t_hl,
+                                                 t_meta, qcap)
+    found, cnt, start = _hash_probe(hi, qhh, qhl, qvalid)
+    # cnt in the table caps at 255: max_occ above that can't be checked
+    keep = found & (cnt < min(max_occ, 255))
+    occ = torch.where(keep, torch.clamp(cnt, max=occ_cap), 0)
+    axh, axl, ayh, ayl, _, n_a, n_tot = _hash_anchors(
+        hi, qmeta, start, occ, torch.where(keep, cnt, 0), acap)
+    return axh, axl, ayh, ayl, n_a, (n_q > qcap) | (n_tot > acap)
+
+
+def collect_anchors_flat(ji: JoinIndex, hh, hl, meta, t_hh, t_hl, t_meta,
+                         max_occ: int, occ_cap: int, qcap: int = 512,
+                         acap: int = 2048):
+    """Anchor collection with the flat probe (ops/anchors_jax.py
+    collect_anchors_flat_pallas_traced): the probe runs over km_p/ke_p
+    (ops/probe.py: CUDA kernel on the card), and the anchors are laid out
+    hit slot by hit slot before the stable sort.  Contract of
+    collect_anchors_join."""
+    from .probe import probe_flat
+    B = hh.shape[0]
+    qhh, qhl, qmeta, n_q, qvalid = step_queries(hh, hl, meta, t_hh, t_hl,
+                                                 t_meta, qcap)
+    ext = probe_flat(flat_queries(qhh, qhl, qvalid), ji.km_p, ji.ke_p)
+    cnt = ext[0].to(torch.int64)
+    keep = (ext[1] > 0) & qvalid & (cnt < max_occ)
+    occ = torch.where(keep, torch.clamp(cnt, max=occ_cap), 0)
+    occ_byte = torch.where(keep, torch.clamp(cnt, max=255), 0)
+    n_tot = occ.sum(1)
+    n_a = torch.clamp(n_tot, max=acap).to(torch.int32)
+    # slot-major layout: hit slot s of every emission, then s + 1
+    s_ok = torch.arange(occ_cap, device=hh.device)[:, None, None] < occ
+
+    def grid(a):
+        return a.expand(occ_cap, B, qcap).permute(1, 0, 2) \
+            .reshape(B, occ_cap * qcap)
+
+    def pay(col0):
+        return grid(ext[col0: col0 + occ_cap].to(torch.int64))
+
+    axh, axl, ayh, ayl, _ = pack_anchors(
+        pay(2), pay(2 + occ_cap), pay(2 + 2 * occ_cap), grid(occ_byte[None]),
+        grid(qmeta[None]), grid(s_ok), acap)
+    return axh, axl, ayh, ayl, n_a, (n_q > qcap) | (n_tot > acap)

@@ -84,7 +84,7 @@ def test_join_tables_match_jax(data, occ_cap):
     got = JoinIndex.host_arrays(gi, occ_cap)
     np.testing.assert_array_equal(np.asarray(want.keymat), got["keymat"])
     np.testing.assert_array_equal(np.asarray(want.keyext), got["keyext"])
-    ji = JoinIndex.from_host(gi, occ_cap)
+    ji = JoinIndex.from_host(gi, occ_cap, "cpu")
     assert ji.occ_cap == occ_cap
     np.testing.assert_array_equal(ji.keys.numpy(),
                                   np.asarray(gi.keys, dtype=np.int64))
@@ -147,4 +147,4 @@ def test_hash_collect_matches_jax(data, occ_cap, qcap, acap):
 
 def test_tables_from_numpy_rejects_unknown_kind():
     with pytest.raises(ValueError):
-        tables_from_numpy("bucketed", {}, "cpu")
+        tables_from_numpy("sorted", {}, "cpu")

@@ -5,7 +5,11 @@ on a GPU machine without JAX:
     python -m pytest tests/test_torch_cuda.py -q -m cuda
 
 Without a CUDA device every test here skips (the kernels have no CPU
-mode).  Integer outputs: tolerance 0."""
+mode).  Integer outputs and the probes' present slots: tolerance 0.  An
+empty slot of the bucketed probe holds its bucket's payload column sum,
+held to a relative tolerance of KB * 2^-24 (the bound on a float32 sum
+of KB non-negative terms in any order; both versions round the exact
+sum once, so they agree bitwise in practice)."""
 import io
 
 import numpy as np
@@ -13,8 +17,11 @@ import pytest
 import torch
 
 from minigraph_tpu_torch import kernels
+from minigraph_tpu_torch.ops.chain import lchain_dp_planes, lchain_dp_tiled_ref
 from minigraph_tpu_torch.ops.chain_exact import (lchain_dp_exact_win,
                                                  lchain_dp_exact_win_ref)
+from minigraph_tpu_torch.ops.probe import (probe_bucketed, probe_bucketed_ref,
+                                           probe_flat, probe_flat_ref)
 from minigraph_tpu_torch.ops.sketch import sketch_planes, sketch_planes_ref
 
 pytestmark = pytest.mark.cuda
@@ -116,6 +123,90 @@ def test_chain_kernel_matches_ref(card, W, T, A, B, max_iter):
     ref = lchain_dp_exact_win_ref(*planes, *args, window=W, tile=T)
     for a, b in zip(got, ref):
         assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W,T,A,B", [(32, 256, 512, 16), (16, 64, 256, 8),
+                                     (64, 8, 128, 5), (200, 16, 256, 4),
+                                     (1, 8, 64, 3)])
+def test_chain_ring_kernel_matches_ref(card, W, T, A, B):
+    rng = np.random.default_rng(W * 7 + A)
+    planes = [t.to(card) for t in synth_planes(rng, B, A, dense_frac=0.5)]
+    before = kernels.launches["chain_ring"]
+    got = lchain_dp_planes(*planes, window=W, tile=T)
+    assert kernels.launches["chain_ring"] == before + 1
+    ref = lchain_dp_tiled_ref(*planes, MDX, MDY, BW, 0.1827, 0.00913,
+                              window=W, tile=T)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+
+
+def test_chain_ring_kernel_rejects_wide_window(card):
+    planes = [t.to(card) for t in synth_planes(np.random.default_rng(2), 2,
+                                               64)]
+    with pytest.raises(ValueError):
+        lchain_dp_planes(*planes, window=257, tile=8)
+
+
+def probe_inputs(rng, nb, qb, kb, B, occ_cap=4, empty=0.0):
+    """Unique keys per bucket, payload integers below 2^23, query slots
+    with hits, misses, and all-zero (empty) or -1 (unused) slots."""
+    ext = 2 + 3 * occ_cap
+    km = np.zeros((nb, 9, kb), np.float32)
+    km[:, 8, :] = 1.0
+    ke = np.zeros((nb, ext, kb), np.float32)
+    sq = np.full((9, B, nb * qb), empty, np.float32)
+
+    def feats(m):
+        c = np.stack([(m >> (9 * i)) & 0x1FF for i in range(4)], -1) \
+            .astype(np.float32)
+        cols = []
+        for i in range(4):
+            cols += [c[:, i] * c[:, i], c[:, i]]
+        return np.stack(cols + [np.ones(len(m), np.float32)]), c
+
+    for v in range(nb):
+        n_keys = int(rng.integers(kb // 2, kb + 1))
+        keys = np.unique(rng.integers(0, (1 << 34) // nb, 2 * n_keys)
+                         * nb + v)[:n_keys]
+        n_keys = len(keys)
+        f, c = feats(keys)
+        km[v, 1:8:2, :n_keys] = -2.0 * c.T
+        km[v, 0:8:2, :n_keys] = 1.0
+        km[v, 8, :n_keys] = (c ** 2).sum(1)
+        ke[v, :, :n_keys] = rng.integers(0, 1 << 23, (ext, n_keys))
+        ke[v, 1, :n_keys] = 1.0
+        for b in range(B):
+            n = int(rng.integers(0, qb + 1))
+            m = np.where(rng.random(n) < 0.6, rng.choice(keys, n),
+                         rng.integers(0, 1 << 30, n) * nb + v)
+            sq[:, b, v * qb: v * qb + n] = feats(m)[0]
+    return [torch.from_numpy(a) for a in (sq, km, ke)]
+
+
+@pytest.mark.parametrize("nb,qb,kb,B", [(4, 8, 512, 8), (64, 24, 1024, 16),
+                                        (1, 5, 300, 3)])
+def test_probe_bucketed_kernel_matches_ref(card, nb, qb, kb, B):
+    sq, km, ke = (t.to(card) for t in probe_inputs(
+        np.random.default_rng(nb + kb), nb, qb, kb, B))
+    before = kernels.launches["probe_bucketed"]
+    got = probe_bucketed(sq, km, ke)
+    assert kernels.launches["probe_bucketed"] == before + 1
+    ref = probe_bucketed_ref(sq, km, ke)
+    present = sq[8] != 0
+    assert torch.equal(got[:, present], ref[:, present])
+    torch.testing.assert_close(got[:, ~present], ref[:, ~present],
+                               rtol=kb * 2.0 ** -24, atol=0)
+
+
+@pytest.mark.parametrize("qcap,kpad,B", [(24, 512, 8), (384, 2048, 16)])
+def test_probe_flat_kernel_matches_ref(card, qcap, kpad, B):
+    sq, km, ke = (t.to(card) for t in probe_inputs(
+        np.random.default_rng(qcap), 1, qcap, kpad, B, occ_cap=16,
+        empty=-1.0))
+    before = kernels.launches["probe_flat"]
+    got = probe_flat(sq, km, ke)
+    assert kernels.launches["probe_flat"] == before + 1
+    assert torch.equal(got, probe_flat_ref(sq, km, ke))
 
 
 def test_map_files_on_card_matches_host(card, tmp_path):

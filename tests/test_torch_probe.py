@@ -1,0 +1,154 @@
+"""The port's join probes (minigraph_tpu_torch/ops/probe.py) against the
+JAX package's: the plain bucketed probe against
+ops/anchors_bucketed.probe_xla and the interpret-mode Pallas kernel
+ops/probe_pallas.probe_bucketed_pallas, the plain flat probe against
+probe_flat_traced (interpret mode), at nb=4, qb=8, KB=512, B=8.
+
+Tolerance: 0 on present slots (feature 8 is 1 for a query, -1 for the
+flat probe's unused slots), which match at most one key.  An empty
+spread slot has all-zero features and matches every key of its bucket;
+its output is the bucket's payload column sum, which here exceeds 2^24
+and so depends on the order of summation: the JAX versions sum in
+float32, the port exactly and rounds once.  Those slots are held to a
+relative tolerance of KB * 2^-24, the bound on the error of a float32
+sum of KB non-negative terms in any order."""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from minigraph_tpu.ops.anchors_bucketed import probe_xla
+from minigraph_tpu.ops.probe_pallas import (probe_bucketed_pallas,
+                                            probe_flat_traced)
+from minigraph_tpu_torch.ops.probe import (probe_bucketed,
+                                           probe_bucketed_ref, probe_flat,
+                                           probe_flat_ref)
+
+# many small tensor ops: one intra-op thread per test process keeps the
+# parallel test workers from oversubscribing the cores they share
+torch.set_num_threads(1)
+
+NB, QB, KB, B, OCC = 4, 8, 512, 8, 4
+EXT = 2 + 3 * OCC
+
+
+def chunks(keys):
+    return np.stack([((keys >> (9 * i)) & 0x1FF) for i in range(4)], -1) \
+        .astype(np.float32)
+
+
+def features(keys):
+    """(n, 9) join features of 36-bit minimizers."""
+    c = chunks(keys)
+    cols = []
+    for i in range(4):
+        cols += [c[:, i] * c[:, i], c[:, i]]
+    return np.stack(cols + [np.ones(len(keys), np.float32)], -1)
+
+
+def tables(rng, nb, kb, n_keys):
+    """Unique keys per bucket (bucket = low bits), keymat/keyext laid
+    out as BucketedJoinIndex; payload integers below 2^23."""
+    km = np.zeros((nb, 9, kb), np.float32)
+    km[:, 8, :] = 1.0
+    ke = np.zeros((nb, EXT, kb), np.float32)
+    keys = []
+    for v in range(nb):
+        kv = np.unique(rng.integers(0, (1 << 34) // nb, 4 * n_keys) * nb + v)
+        kv = rng.permutation(kv)[:n_keys]
+        c = chunks(kv)
+        for i in range(4):
+            km[v, 2 * i, :n_keys] = 1.0
+            km[v, 2 * i + 1, :n_keys] = -2.0 * c[:, i]
+        km[v, 8, :n_keys] = (c ** 2).sum(1)
+        ke[v, :, :n_keys] = rng.integers(0, 1 << 23, (EXT, n_keys))
+        ke[v, 1, :n_keys] = 1.0
+        keys.append(kv)
+    return km, ke, keys
+
+
+def queries(rng, keys, qb):
+    """(9, B, nb*qb): per read and bucket, a few hits, a few misses,
+    empty slots after them."""
+    nb = len(keys)
+    sq = np.zeros((9, B, nb * qb), np.float32)
+    for b in range(B):
+        for v in range(nb):
+            n = int(rng.integers(0, qb + 1)) if b else 0
+            q = np.where(rng.random(n) < 0.6, rng.choice(keys[v], n),
+                         rng.integers(0, 1 << 30, n) * nb + v)
+            sq[:, b, v * qb: v * qb + n] = features(q).T
+    return sq
+
+
+def check(want, got, present, kb):
+    want = np.asarray(want)
+    np.testing.assert_array_equal(want[:, present], got[:, present])
+    np.testing.assert_allclose(got[:, ~present], want[:, ~present],
+                               rtol=kb * 2.0 ** -24, atol=0)
+
+
+@pytest.fixture(scope="module")
+def bucketed():
+    rng = np.random.default_rng(17)
+    km, ke, keys = tables(rng, NB, KB, 400)
+    sq = queries(rng, keys, QB)
+    return km, ke, sq
+
+
+def test_bucketed_ref_matches_jax(bucketed):
+    km, ke, sq = bucketed
+    got = probe_bucketed_ref(torch.from_numpy(sq), torch.from_numpy(km),
+                             torch.from_numpy(ke)).numpy()
+    present = sq[8] != 0
+    assert 20 < present.sum() < present.size - 20
+    # ext[1] counts the matching keys of a present slot: 0 or 1
+    assert set(np.unique(got[1][present])) == {0.0, 1.0}
+    sf = np.concatenate([sq, np.zeros((2,) + sq.shape[1:], np.float32)])
+    check(probe_xla(jnp.asarray(km), jnp.asarray(ke), jnp.asarray(sf)),
+          got, present, KB)
+    check(probe_bucketed_pallas(jnp.asarray(sq), jnp.asarray(km),
+                                jnp.asarray(ke), NB, bb=8, kc=256,
+                                interpret=True), got, present, KB)
+    # empty slots hold the column sums, beyond 2^24
+    assert got[2][~present].min() > 2 ** 24
+    wrap = probe_bucketed(torch.from_numpy(sq), torch.from_numpy(km),
+                          torch.from_numpy(ke))
+    assert torch.equal(wrap, torch.from_numpy(got))
+
+
+def test_flat_ref_matches_jax():
+    rng = np.random.default_rng(19)
+    km, ke, keys = tables(rng, 1, KB, 450)
+    qcap = 24
+    sq = queries(rng, keys, qcap)
+    # the flat probe's unused query slots carry -1 features
+    sq = np.where(sq[8:9] == 0, np.float32(-1), sq)
+    x64 = jax.config.jax_enable_x64
+    jax.config.update("jax_enable_x64", False)
+    try:
+        want = jax.jit(lambda a, b, c: probe_flat_traced(
+            a, b, c, interpret=True))(jnp.asarray(sq), jnp.asarray(km),
+                                      jnp.asarray(ke))
+        want = np.asarray(want)
+    finally:
+        jax.config.update("jax_enable_x64", x64)
+    got = probe_flat_ref(torch.from_numpy(sq), torch.from_numpy(km),
+                         torch.from_numpy(ke))
+    np.testing.assert_array_equal(want, got.numpy())
+    assert (got[1].numpy() == 1).sum() > 10
+    wrap = probe_flat(torch.from_numpy(sq), torch.from_numpy(km[0]),
+                      torch.from_numpy(ke[0]))
+    assert torch.equal(wrap, got)
+
+
+def test_probe_checks_shapes(bucketed):
+    km, ke, sq = bucketed
+    t = [torch.from_numpy(a) for a in (sq, km, ke)]
+    with pytest.raises(ValueError):
+        probe_bucketed(t[0][:, :, :-1], t[1], t[2])   # SB % nb
+    with pytest.raises(TypeError):
+        probe_bucketed(t[0].double(), t[1], t[2])
+    with pytest.raises(ValueError):
+        probe_flat(t[0], t[1], t[2])                  # four buckets
