@@ -10,16 +10,19 @@ Phases, in order; any failure exits non-zero:
    checkout;
 3. kernels against their plain PyTorch versions on the card, bitwise:
    the sketch kernel at the three buckets' shapes on synthetic reads
-   with N runs, tandem repeats and empty lanes; the chain kernel on
-   anchors from the real collect at each bucket's (B, A, W, T), the
-   batch padded with empty reads to the bucket's width;
+   with N runs, tandem repeats and empty lanes; the exact chain kernel
+   (K2) and the chunked-walk chain kernel (K3) on the same anchors from
+   the real collect at each bucket's (B, A, W, T), the batch padded with
+   empty reads to the bucket's width, K3's sure flags equal to K2's;
 4. main path at real size: a 5 Mb MHC-class synthetic reference as an
    rGFA bubble graph (its index has well over 1e5 keys, so the hash
    join runs), 1024 reads of 800-1900 bp plus 128 reads of ~15 kb mean
    (capped at 30 kb) off a haplotype walk; map_files(device="cuda") and
-   map_files(device=None) must write the same GAF bytes, both kernels
-   must have launched, and at least 80% of eligible reads must stay on
-   the device;
+   map_files(device=None) must write the same GAF bytes, the sketch and
+   K2 kernels must have launched, and at least 80% of eligible reads
+   must stay on the device; then the device run again with
+   MGT_CHAIN_CHUNKED=1: the same GAF bytes and reads on the device, K3
+   launched and K2 not;
 5. batched map step (minigraph_tpu_torch/ops/pipeline.py) at bench.py's
    stage shape (B=512 short reads padded to 2048, acap=512, qcap=384,
    window=32, b_chunk=64, occ_cap=16): make_map_step_v3 with (a) the
@@ -29,7 +32,12 @@ Phases, in order; any failure exits non-zero:
    probe and flat probe kernels against their plain versions at these
    inputs, the card's step against the same step on the CPU on the
    first 64 reads, (a) against (b) on unflagged reads, each kernel's
-   launches in that run, and the steps' reads/s.
+   launches in that run, and the steps' reads/s;
+6. banded dual-affine gap scores (ops/wfa_banded.py banded_score, K7)
+   at wa=32 on 4096 pairs of 256-2048 bp cut from the 5 Mb reference
+   (the -c gap jobs' lengths) with 2% substitutions and 1% indels, 5% of
+   them with a length skew beyond the band; the kernel against its
+   plain version, bitwise.
 
 Prints the kernels' JSON line, then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
@@ -40,6 +48,7 @@ from __future__ import annotations
 import dataclasses
 import io
 import json
+import os
 import subprocess
 import sys
 import time
@@ -52,6 +61,10 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, NVIDIA data sheet
 SCALAR_OPS_PER_S = 67e12    # float32 outside the tensor cores, same sheet
 SKETCH_OPS_PER_BASE = 5 * 11 + 60   # window min + ties at w=11, hash+regs
 CHAIN_OPS_PER_ROW = 40      # comput_sc with the fast log2, per candidate
+# one banded cell: four gap planes (two adds and a min each), H (the
+# substitution test and select, one add, four mins)
+WFA_OPS_PER_CELL = 4 * 3 + 7
+WFA_WA, WFA_PAIRS = 32, 4096
 PROBE_OPS_PER_PAIR = 18     # the 9-term distance: 9 multiplies, 9 adds
 # bench.py bench_stage's shape of the batched map step
 STEP_B, STEP_PAD = 512, 2048
@@ -161,8 +174,9 @@ def collect_batch(front, seqs, pad_len):
     return res, win, tile
 
 
-def check_chain(front, seqs, pad_len, reps):
-    from minigraph_tpu_torch.ops import chain_exact as ce
+def chain_inputs(front, seqs, pad_len):
+    """The chain kernels' arguments on one bucket batch, as the main
+    path gives them."""
     bsz = dict(front.buckets)[pad_len]
     if not 16 <= len(seqs) <= bsz:
         raise AssertionError(f"{len(seqs)} reads for a {pad_len} bucket "
@@ -175,36 +189,87 @@ def check_chain(front, seqs, pad_len, reps):
             int(front.mdx_adj), int(front.mdy_adj), int(opt.bw),
             int(opt.max_lc_skip), int(opt.max_lc_iter), front.chn_pen_gap,
             front.chn_pen_skip)
+    return args, W, T
+
+
+def chain_bytes(args):
+    """Four anchor planes in, f and p out, n_a and sure."""
+    B, A = args[0].shape
+    return B * A * (4 * 4 + 2 * 4) + B * 5
+
+
+def check_chain(args, W, T, reps):
+    from minigraph_tpu_torch.ops import chain_exact as ce
     got = ce.lchain_dp_exact_win(*args, window=W, tile=T)
     t0 = time.perf_counter()
     ref = ce.lchain_dp_exact_win_ref(*args, window=W, tile=T)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     err = max_abs_err(got, ref)
+    B, A = args[0].shape
     if err:
-        raise AssertionError(f"chain kernel differs at {tuple(res['axh'].shape)}"
-                             f" W={W} T={T}: {err}")
+        raise AssertionError(f"chain kernel differs at {(B, A)} W={W} "
+                             f"T={T}: {err}")
     ms = cuda_time(lambda: ce.lchain_dp_exact_win(*args, window=W, tile=T),
                    reps)
-    B, A = res["axh"].shape
-    n_a = res["n_a"].to(torch.int64).cpu().numpy()
+    n_a = args[4].to(torch.int64).cpu().numpy()
     # candidate rows this data needs: anchor i scans W + (i mod T) rows
     # above the start of its tile, minus those before the read start
     rows = 0
     for n in n_a.tolist():
         i = np.arange(n)
         rows += int(np.minimum(i, W + i % T).sum())
-    nbytes = B * A * (4 * 4 + 2 * 4) + B * 5
-    ops = rows * CHAIN_OPS_PER_ROW
-    bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
+    bms, by = bound(chain_bytes(args), rows * CHAIN_OPS_PER_ROW)
     sure = int(got[2].sum())
     log(f"chain ({B}, {A}, W={W}, T={T}): bitwise equal, {sure}/{B} sure,"
         f" n_a mean {n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms,"
-        f" plain {plain:.1f} ms, bound {bound:.4f} ms")
+        f" plain {plain:.1f} ms, bound {bms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bound,
-            "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
-            >= ops / SCALAR_OPS_PER_S else "operations"}
+            "bound_ms": bms, "bound_by": by}, got[2]
+
+
+def check_chunked(args, W, T, reps, k2, k2_sure):
+    """K3 against its plain version on K2's inputs; its sure flags
+    against K2's; the two kernels' times side by side."""
+    from minigraph_tpu_torch.ops import chain_chunked as cc
+    got = cc.lchain_dp_chunked(*args, window=W, tile=T)
+    walk = {}
+    t0 = time.perf_counter()
+    ref = cc.lchain_dp_chunked_ref(*args, window=W, tile=T, walk=walk)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err(got, ref)
+    B, A = args[0].shape
+    if err:
+        raise AssertionError(f"chunked chain kernel differs at {(B, A)} "
+                             f"W={W} T={T}: {err}")
+    if not torch.equal(got[2], k2_sure):
+        raise AssertionError(f"chunked chain sure flags differ from the "
+                             f"exact chain's at {(B, A)}")
+    ms = cuda_time(lambda: cc.lchain_dp_chunked(*args, window=W, tile=T),
+                   reps)
+    # rows the walk evaluated on this data: the top 128 (capped at i)
+    # of every anchor, 64 per block walked
+    rows = walk["top"] + 64 * walk["blocks"]
+    bms, by = bound(chain_bytes(args), rows * CHAIN_OPS_PER_ROW)
+    n_anchor = int(args[4].to(torch.int64).sum())
+    log(f"chunked chain ({B}, {A}, W={W}, T={T}): bitwise equal, sure "
+        f"flags equal to K2's ({int(got[2].sum())}/{B}); {walk['blocks']} "
+        f"blocks walked over {n_anchor} anchors ({rows} rows); kernel "
+        f"{ms:.4f} ms against K2's {k2['ms']:.4f} ms, plain {plain:.1f} ms, "
+        f"bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+            "bound_ms": bms, "bound_by": by, "k2_ms": k2["ms"]}
+
+
+def check_buckets(front, batches, reps):
+    """K2 and K3 on the same collected inputs at each bucket shape."""
+    out = []
+    for seqs, pad_len, r in zip(batches, (2048, 8192, 32768), reps):
+        args, W, T = chain_inputs(front, seqs, pad_len)
+        k2, k2_sure = check_chain(args, W, T, r)
+        out.append((k2, check_chunked(args, W, T, r, k2, k2_sure)))
+    return out
 
 
 def tables_to(ji, device):
@@ -308,6 +373,87 @@ def check_probe(sq, km, ke, present, flat, reps):
         f"{bms:.4f} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
             "bound_ms": bms, "bound_by": by, "library_ms": lib}
+
+
+def gap_pairs(ref, rng, n):
+    """Gap jobs of the -c buckets (256-2048 bp): the target cut from the
+    reference, the query a copy with 2% substitutions and 1% indels of
+    1-3 bp; every 20th query loses 80-200 bp at its end, a length skew
+    beyond the band."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    seq = np.frombuffer(ref.encode(), np.uint8)
+    pairs = []
+    for k in range(n):
+        L = int(rng.integers(256, 2049))
+        st = int(rng.integers(0, len(seq) - L))
+        t = seq[st: st + L]
+        q = t.copy()
+        sub = rng.random(L) < 0.02
+        q[sub] = rng.choice(acgt, int(sub.sum()))
+        # from the end backwards, so earlier positions stay in place
+        for pos in np.sort(rng.choice(L, rng.binomial(L, 0.01),
+                                      replace=False))[::-1].tolist():
+            ln = int(rng.integers(1, 4))
+            q = np.insert(q, pos, rng.choice(acgt, ln)) \
+                if rng.random() < 0.5 \
+                else np.concatenate([q[:pos], q[pos + ln:]])
+        if k % 20 == 19:
+            q = q[: len(q) - int(rng.integers(80, 201))]
+        pairs.append((t.tobytes(), q.tobytes()))
+    return pairs
+
+
+def wfa_phase(ref, kernels, reps):
+    """Phase 6: K7 through banded_score on the gap pairs."""
+    from minigraph_tpu_torch.ops.wfa_banded import (banded_score,
+                                                    banded_score_planes,
+                                                    banded_score_ref,
+                                                    encode_pairs)
+    pairs = gap_pairs(ref, np.random.default_rng(50), WFA_PAIRS)
+    kernels.reset_launches()
+    scores = banded_score(pairs, wa=WFA_WA)
+    launches = kernels.launches["wfa_banded"]
+    if launches <= 0:
+        raise AssertionError("wfa_banded kernel not launched by banded_score")
+    known = banded_score([(b"ACGTACGT", b"ACGAACGT"), (b"ACGT" * 8,) * 2,
+                          (b"ACGT" * 30, b"ACGT")], wa=WFA_WA)
+    if known.tolist() != [4, 0, -1]:
+        raise AssertionError(f"banded_score on known pairs: {known}")
+    planes = encode_pairs(pairs, "cuda")
+    got = banded_score_planes(*planes, wa=WFA_WA)
+    t0 = time.perf_counter()
+    ref_raw = banded_score_ref(*planes, wa=WFA_WA)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    err = max_abs_err([got], [ref_raw])
+    if err:
+        raise AssertionError(f"banded kernel differs: {err}")
+    raw = ref_raw.cpu().numpy()
+    if not np.array_equal(scores, np.where(raw >= 1 << 28, -1, raw)):
+        raise AssertionError("banded_score differs from the plain version")
+    if (scores[19::20] != -1).any():
+        raise AssertionError("a pair skewed beyond the band was scored")
+    ms = cuda_time(lambda: banded_score_planes(*planes, wa=WFA_WA), reps)
+    tseq, _, tl, ql = planes
+    B, L = tseq.shape
+    # the band's cells up to each pair's end anti-diagonal; the two
+    # sequence planes, the lengths and the scores once
+    cells = WFA_WA * int((tl.long() + ql.long() + 1).sum())
+    bms, by = bound(2 * B * L + 12 * B, cells * WFA_OPS_PER_CELL)
+    log(f"banded score ({B} pairs, L={L}, wa={WFA_WA}): bitwise equal; "
+        f"{int((scores >= 0).sum())} scored, {int((scores < 0).sum())} "
+        f"outside the band, mean score {scores[scores >= 0].mean():.1f}; "
+        f"kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms "
+        f"({by}); launches {launches}")
+    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+                      "bound_ms": bms, "bound_by": by, "library_ms": None}
+
+
+def first_diff(a, b):
+    """Line number of the first difference of two GAF texts."""
+    a, b = a.splitlines(), b.splitlines()
+    return next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
+                min(len(a), len(b)))
 
 
 def step_rate(step, codes, lens):
@@ -476,16 +622,15 @@ def main() -> int:
     log(f"index: {len(gi.keys)} keys, hash join: {front.hashed}")
     if not front.hashed:
         raise AssertionError("the 5 Mb index should take the hash join")
-    k2 = check_chain(front, [s for _, s in short[:256]], 2048, reps=5)
     # the main path's 8 kb batch holds only a few reads: a full batch of
-    # 2.1-8 kb reads off the same walk checks the kernel at that width
+    # 2.1-8 kb reads off the same walk checks the kernels at that width
     mid = simulate_reads([hap], 128, seed=46, mean_len=5000, min_len=2100,
                          max_len=8000)
-    k2_mid = check_chain(
-        front, [s for _, s in mid if 2048 < len(s) <= 8192], 8192, reps=5)
-    k2_long = check_chain(
-        front, [s for _, s in long_ if 8192 < len(s) <= 32768], 32768,
-        reps=2)
+    (k2, k3), (k2_mid, k3_mid), (k2_long, k3_long) = check_buckets(
+        front, [[s for _, s in short[:256]],
+                [s for _, s in mid if 2048 < len(s) <= 8192],
+                [s for _, s in long_ if 8192 < len(s) <= 32768]],
+        reps=(5, 5, 2))
     hash_tables = front.ji      # the cuckoo tables, reused by phase 5
     del front, g
 
@@ -502,10 +647,8 @@ def main() -> int:
               io_, mo, out=buf, n_threads=8, device=None, stats=st_host)
     host_gaf = buf.getvalue()
     if dev_gaf != host_gaf:
-        a, b = dev_gaf.splitlines(), host_gaf.splitlines()
-        diff = next((i for i, (x, y) in enumerate(zip(a, b)) if x != y),
-                    min(len(a), len(b)))
-        raise AssertionError(f"GAF differs from the host run at line {diff}")
+        raise AssertionError(f"GAF differs from the host run at line "
+                             f"{first_diff(dev_gaf, host_gaf)}")
     n_lines = dev_gaf.count("\n")
     log(f"main path: GAF bytes equal to the host-only run "
         f"({n_lines} lines, {len(dev_gaf)} bytes)")
@@ -526,8 +669,35 @@ def main() -> int:
         f", host-only path {n_reads / (st_host['map_ms'] / 1e3):.1f} "
         f"(map {st_host['map_ms']:.0f} ms), 8 host threads")
     log(f"stage ms (device: CUDA events; tail: host clock): {stages}")
-    for name, a, b in (("8 kb", k1_mid, k2_mid), ("32 kb", k1_long, k2_long)):
-        log(f"{name} bucket: sketch {json.dumps(a)}; chain {json.dumps(b)}")
+    for name, a, b, c in (("8 kb", k1_mid, k2_mid, k3_mid),
+                          ("32 kb", k1_long, k2_long, k3_long)):
+        log(f"{name} bucket: sketch {json.dumps(a)}; chain {json.dumps(b)};"
+            f" chunked chain {json.dumps(c)}")
+
+    # ---- 4, again: the main path with the chunked-walk chain (K3)
+    os.environ["MGT_CHAIN_CHUNKED"] = "1"
+    try:
+        kernels.reset_launches()
+        buf, st_c = io.StringIO(), {}
+        map_files(read_gfa(str(work / "mhc5m.gfa")),
+                  [str(work / "reads.fa")], io_, mo, out=buf, n_threads=8,
+                  device="cuda", stats=st_c)
+        launches_c = dict(kernels.launches)
+    finally:
+        del os.environ["MGT_CHAIN_CHUNKED"]
+    if buf.getvalue() != host_gaf:
+        raise AssertionError(f"chunked-chain GAF differs from the host run "
+                             f"at line {first_diff(buf.getvalue(), host_gaf)}")
+    if launches_c["chain_chunked"] <= 0 or launches_c["chain_exact"]:
+        raise AssertionError(f"chunked main path launches: {launches_c}")
+    if st_c["n_device"] != st["n_device"]:
+        raise AssertionError(f"chunked main path kept {st_c['n_device']} "
+                             f"reads on the device, K2's {st['n_device']}")
+    log(f"main path, MGT_CHAIN_CHUNKED=1: GAF bytes equal to the host-only "
+        f"run, {st_c['n_device']}/{tot} reads on the device; chain stage "
+        f"{st_c['stage_ms']['chain']:.3f} ms against K2's "
+        f"{st['stage_ms']['chain']:.3f} ms; map {st_c['map_ms']:.0f} ms; "
+        f"launches {launches_c}")
 
     # ---- 5. batched map step
     flat_ref = make_reference(400_000, seed=47)
@@ -540,6 +710,9 @@ def main() -> int:
         gi, hash_tables, [s for _, s in short[:STEP_B]], flat_gi,
         [s for _, s in flat_reads], kernels)
 
+    # ---- 6. banded gap scores
+    wfa_launches, k7 = wfa_phase(ref, kernels, reps=5)
+
     entries = [
         dict(name="sketch", route="cuda",
              source="minigraph_tpu_torch/csrc/sketch.cu",
@@ -549,6 +722,10 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/chain_exact.cu",
              replaces="minigraph_tpu/ops/chain_exact_pallas.py:45",
              launches=launches["chain_exact"], library_ms=None, **k2),
+        dict(name="chain_chunked", route="cuda",
+             source="minigraph_tpu_torch/csrc/chain_chunked.cu",
+             replaces="minigraph_tpu/ops/chain_chunked_pallas.py:58",
+             launches=launches_c["chain_chunked"], library_ms=None, **k3),
         dict(name="chain_ring", route="cuda",
              source="minigraph_tpu_torch/csrc/chain_ring.cu",
              replaces="minigraph_tpu/ops/chain_pallas.py:41",
@@ -561,6 +738,10 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/probe.cu",
              replaces="minigraph_tpu/ops/probe_pallas.py:110",
              launches=step_launches["probe_flat"], **k6),
+        dict(name="wfa_banded", route="cuda",
+             source="minigraph_tpu_torch/csrc/wfa_banded.cu",
+             replaces="minigraph_tpu/ops/wfa_pallas.py:52",
+             launches=wfa_launches, **k7),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

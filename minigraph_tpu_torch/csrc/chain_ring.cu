@@ -22,56 +22,13 @@
 // smallest anchor index, and the lane that owns slot i % W overwrites
 // it with anchor i.  The loads of anchor i + 1 are issued before the
 // scores of anchor i.  No grid step carries state: the anchor loop runs
-// inside the warp.  Float arithmetic is spelled with __fmul_rn and
-// __fadd_rn and the library is built with --fmad=false: contracting the
-// linear penalty or the fast log2 into FMAs would move the integer
-// penalty by one.
-#include <cuda_runtime.h>
-#include <stdint.h>
+// inside the warp.  comput_sc is shared with the other chain kernels
+// (chain_sc.cuh).
+#include "chain_sc.cuh"
 
 namespace {
 
-constexpr int NEG_BIG = -0x3FFFFFFF;
-constexpr unsigned FULL = 0xFFFFFFFFu;
 constexpr int MAX_SPL = 8;          // window <= 256
-
-__device__ __forceinline__ float mg_log2(float z)
-{
-    const unsigned i = __float_as_uint(z);
-    const float log2 = (float)((int)((i >> 23) & 255u) - 128);
-    const float zf = __uint_as_float((i & 0x807FFFFFu) + (127u << 23));
-    const float c1 = -0.34484843f, c2 = 2.02466578f, c3 = 0.67487759f;
-    return __fadd_rn(log2, __fsub_rn(
-        __fmul_rn(__fadd_rn(__fmul_rn(c1, zf), c2), zf), c3));
-}
-
-__device__ __forceinline__ int wrap_sub(int a, int b)
-{
-    return (int)((unsigned)a - (unsigned)b);
-}
-
-// comput_sc in int32 with wrap-around; false when the pair is refused
-__device__ __forceinline__ bool score(int tp_i, int qp_i, int tp_j, int qp_j,
-                                      int sp_j, int mdx, int mdy, int bw,
-                                      float pen_gap, float pen_skip, int *sc)
-{
-    const int dq = wrap_sub(qp_i, qp_j);
-    const int dr = wrap_sub(tp_i, tp_j);
-    if (dq <= 0 || dq > mdx || dr == 0 || dq > mdy) return false;
-    const int diff = wrap_sub(dr, dq);
-    const int dd = diff < 0 ? (int)(0u - (unsigned)diff) : diff;
-    if (dd > bw) return false;
-    const int dg = min(dr, dq);
-    int s = min(sp_j, dg);
-    const float lin = __fadd_rn(__fmul_rn(pen_gap, (float)dd),
-                                __fmul_rn(pen_skip, (float)dg));
-    const float logp = dd >= 1 ? mg_log2((float)(int)((unsigned)dd + 1u))
-                               : 0.0f;
-    const int pen = (int)__fadd_rn(lin, __fmul_rn(0.5f, logp));
-    if (dd != 0 || dg > sp_j) s = wrap_sub(s, pen);
-    *sc = s;
-    return true;
-}
 
 template <int SPL>
 __global__ void chain_ring_kernel(const int32_t *__restrict__ xh,
@@ -113,10 +70,12 @@ __global__ void chain_ring_kernel(const int32_t *__restrict__ xh,
         int v = NEG_BIG, vj = 0x7FFFFFFF;
 #pragma unroll
         for (int s = 0; s < SPL; ++s) {
-            int sc;
-            if (wai[s] >= 0 && wxh[s] == xh_i
-                && score(tp_i, qp_i, wtp[s], wqp[s], wsp[s], mdx, mdy, bw,
-                         pen_gap, pen_skip, &sc)) {
+            bool ok = false;
+            int sc = 0;
+            if (wai[s] >= 0 && wxh[s] == xh_i)
+                sc = sc_valid(tp_i, qp_i, wtp[s], wqp[s], wsp[s], mdx, mdy,
+                              bw, pen_gap, pen_skip, &ok);
+            if (ok) {
                 const int tot = sc + wf[s];
                 if (tot > v || (tot == v && wai[s] < vj)) {
                     v = tot;

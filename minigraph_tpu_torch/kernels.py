@@ -44,10 +44,13 @@ KERNELS = {
     "sketch": ("sketch.cu", "mgt_cuda_sketch_planes", "ppiiiipppppppp"),
     "chain_exact": ("chain_exact.cu", "mgt_cuda_chain_exact",
                     "pppppiiiiiiiiiffpppp"),
+    "chain_chunked": ("chain_chunked.cu", "mgt_cuda_chain_chunked",
+                      "pppppiiiiiiiiffpppp"),
     "chain_ring": ("chain_ring.cu", "mgt_cuda_chain_ring",
                    "pppppiiiiiiffpp"),
     "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiipp"),
     "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiipp"),
+    "wfa_banded": ("wfa_banded.cu", "mgt_cuda_wfa_banded", "ppppiiiiiiiip"),
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -6,7 +6,9 @@ bucket one step runs on the device:
   1. minimizer sketch (ops/sketch.py; CUDA kernel on the card);
   2. seed collection (ops/anchors.py): the flat join below 1e5 index
      keys, the cuckoo-hash join above;
-  3. the exact-or-flag chain DP (ops/chain_exact.py; CUDA kernel);
+  3. the exact-or-flag chain DP (ops/chain_exact.py; CUDA kernel), or
+     with MGT_CHAIN_CHUNKED set its chunked-walk form
+     (ops/chain_chunked.py; CUDA kernel) where the bucket allows it;
   4. the exact backtrack and compaction (ops/backtrack.py);
   5. packing into one buffer, fetched with a single copy to the host.
 
@@ -22,6 +24,7 @@ for tensors on the card and their plain versions for tensors on the CPU.
 """
 from __future__ import annotations
 
+import os
 import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
@@ -35,6 +38,7 @@ from ..options import (MG_M_HEAP_SORT, MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE,
 from ..ops.anchors import (HashJoinIndex, JoinIndex, collect_anchors_exact,
                            collect_anchors_exact_hash)
 from ..ops.backtrack import backtrack_compact
+from ..ops.chain_chunked import lchain_dp_chunked
 from ..ops.chain_exact import lchain_dp_exact_win
 from ..ops.sketch import encode_batch, sketch_planes
 from .native_tail import chain_penalties
@@ -128,11 +132,13 @@ class DeviceFront:
 
     No entry point passes `buckets` or `chain_window`: like the JAX
     front's parameters of the same names, they exist so that the tests
-    can run both fronts at one small bucket and window on the CPU."""
+    can run both fronts at one small bucket and window on the CPU.
+    `chain_chunked` likewise: None reads the MGT_CHAIN_CHUNKED switch of
+    the JAX front (any non-empty value turns the chunked chain on)."""
 
     def __init__(self, gi: MinimizerIndex, opt: MapOptions, device="cuda",
                  buckets: Sequence[Tuple[int, int]] = DEFAULT_BUCKETS,
-                 chain_window: int = None):
+                 chain_window: int = None, chain_chunked: bool = None):
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("DeviceFront: no CUDA device available")
@@ -166,6 +172,9 @@ class DeviceFront:
             not (opt.flag & (MG_M_RMQ | MG_M_SPLICE | MG_M_SR))
             and opt.max_frag_len <= 0)
         self.chain_window = chain_window
+        if chain_chunked is None:
+            chain_chunked = bool(os.environ.get("MGT_CHAIN_CHUNKED"))
+        self.chain_chunked = chain_chunked
         self.chn_pen_gap, self.chn_pen_skip = chain_penalties(gi, opt)
         mdx = opt.max_gap_ref if opt.max_gap_ref > 0 else opt.max_gap
         mdy = opt.max_gap
@@ -224,7 +233,12 @@ class DeviceFront:
         q_cnt = torch.clamp(res["q_cnt"], 0, 255)
         t2 = tm.mark()
         tm.add("collect", t1, t2)
-        f, p, sure = lchain_dp_exact_win(
+        # the chunked chain drops the max_ii candidate, exact only while
+        # the iteration clamp clears the buffer (the JAX front's guards)
+        chain = lchain_dp_chunked if (
+            self.chain_chunked and opt.max_lc_iter >= win + min(128, acap)
+            and win >= 128) else lchain_dp_exact_win
+        f, p, sure = chain(
             res["axh"], res["axl"], res["ayh"], res["ayl"], res["n_a"],
             int(self.mdx_adj), int(self.mdy_adj), int(opt.bw),
             int(opt.max_lc_skip), int(opt.max_lc_iter), self.chn_pen_gap,

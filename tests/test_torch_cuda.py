@@ -18,11 +18,16 @@ import torch
 
 from minigraph_tpu_torch import kernels
 from minigraph_tpu_torch.ops.chain import lchain_dp_planes, lchain_dp_tiled_ref
+from minigraph_tpu_torch.ops.chain_chunked import (lchain_dp_chunked,
+                                                   lchain_dp_chunked_ref)
 from minigraph_tpu_torch.ops.chain_exact import (lchain_dp_exact_win,
                                                  lchain_dp_exact_win_ref)
 from minigraph_tpu_torch.ops.probe import (probe_bucketed, probe_bucketed_ref,
                                            probe_flat, probe_flat_ref)
 from minigraph_tpu_torch.ops.sketch import sketch_planes, sketch_planes_ref
+from minigraph_tpu_torch.ops.wfa_banded import (banded_score_planes,
+                                                banded_score_ref,
+                                                encode_pairs)
 
 pytestmark = pytest.mark.cuda
 MDX = MDY = 5000
@@ -51,8 +56,10 @@ def synth_codes(rng, B, L):
     return codes, lens
 
 
-def synth_planes(rng, B, A, dense_frac=0.25):
-    """Sorted anchor planes like real seed hits, with repeat pileups."""
+def synth_planes(rng, B, A, dense_frac=0.25, scramble=0.0):
+    """Sorted anchor planes like real seed hits, with repeat pileups;
+    `scramble` of each read's anchors trade query positions (short
+    chains, so the chunked chain walks below its top rows)."""
     U = 0xFFFFFFFF
     planes = [np.full((B, A), U, np.int64) for _ in range(4)]
     n_a = rng.integers(0, A + 1, B).astype(np.int32)
@@ -75,6 +82,9 @@ def synth_planes(rng, B, A, dense_frac=0.25):
         planes[1][b, :n] = tpos[order]
         planes[2][b, :n] = rng.integers(15, 24, n)
         planes[3][b, :n] = qpos[order]
+        if scramble:
+            sel = rng.choice(n, int(n * scramble), replace=False)
+            planes[3][b, sel] = rng.permutation(planes[3][b, sel])
     return [torch.from_numpy(p) for p in planes] + [torch.from_numpy(n_a)]
 
 
@@ -145,6 +155,77 @@ def test_chain_ring_kernel_rejects_wide_window(card):
                                                64)]
     with pytest.raises(ValueError):
         lchain_dp_planes(*planes, window=257, tile=8)
+
+
+@pytest.mark.parametrize("A,W,T,scramble", [(512, 512, 128, 0.0),
+                                             (2048, 768, 128, 0.3),
+                                             (5376, 768, 128, 1.0)])
+def test_chain_chunked_kernel_matches_ref(card, A, W, T, scramble):
+    rng = np.random.default_rng(A + W)
+    planes = [t.to(card) for t in synth_planes(rng, 8, A, dense_frac=0.5,
+                                               scramble=scramble)]
+    args = (MDX, MDY, BW, MAX_SKIP, MAX_ITER, PEN_GAP, PEN_SKIP)
+    before = kernels.launches["chain_chunked"]
+    got = lchain_dp_chunked(*planes, *args, window=W, tile=T)
+    assert kernels.launches["chain_chunked"] == before + 1
+    walk = {}
+    ref = lchain_dp_chunked_ref(*planes, *args, window=W, tile=T, walk=walk)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    # the full-window chain flags the same reads
+    assert torch.equal(got[2], lchain_dp_exact_win(*planes, *args, window=W,
+                                                   tile=T)[2])
+    if scramble:
+        assert walk["blocks"] > 0
+
+
+def test_chain_chunked_kernel_rejects_bad_shapes(card):
+    planes = [t.to(card) for t in synth_planes(np.random.default_rng(2), 2,
+                                               256)]
+    args = (MDX, MDY, BW, MAX_SKIP, MAX_ITER, PEN_GAP, PEN_SKIP)
+    for W, T in ((160, 32), (2112, 64)):
+        with pytest.raises(ValueError):
+            lchain_dp_chunked(*planes, *args, window=W, tile=T)
+
+
+def gap_pairs(rng, n, max_len):
+    """Target/query pairs of mixed lengths: diverged copies (substitutions
+    and short indels), unrelated sequences and out-of-band skews."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pairs = []
+    for k in range(n):
+        t = rng.choice(acgt, int(rng.integers(1, max_len + 1)))
+        if k % 8 == 7:
+            q = rng.choice(acgt, max(1, len(t) + int(rng.integers(-40, 41))))
+        else:
+            q = t.copy()
+            sub = rng.random(len(q)) < 0.03
+            q[sub] = rng.choice(acgt, int(sub.sum()))
+            for _ in range(int(rng.integers(0, 4))):
+                p = int(rng.integers(0, len(q)))
+                q = np.concatenate([q[:p], rng.choice(acgt, int(rng.integers(
+                    0, 3))), q[p + int(rng.integers(0, 3)):]])
+        pairs.append((t.tobytes(), q.tobytes()))
+    pairs.append((b"ACGT" * 100, b"ACGT"))       # beyond every band
+    return pairs
+
+
+@pytest.mark.parametrize("wa", [32, 64, 128])
+def test_wfa_banded_kernel_matches_ref(card, wa):
+    pairs = gap_pairs(np.random.default_rng(wa), 96, 2048)
+    planes = encode_pairs(pairs, card)
+    before = kernels.launches["wfa_banded"]
+    got = banded_score_planes(*planes, wa=wa)
+    assert kernels.launches["wfa_banded"] == before + 1
+    ref = banded_score_ref(*planes, wa=wa)
+    assert torch.equal(got, ref)
+    assert (got < 1 << 28).any() and (got >= 1 << 28).any()
+
+
+def test_wfa_banded_kernel_rejects_odd_band(card):
+    planes = encode_pairs([(b"ACGT", b"ACGA")], card)
+    with pytest.raises(ValueError):
+        banded_score_planes(*planes, wa=48)
 
 
 def probe_inputs(rng, nb, qb, kb, B, occ_cap=4, empty=0.0):
