@@ -593,7 +593,8 @@ def main() -> int:
     t2 = time.perf_counter()
     log(f"build: kernels {t1 - t0:.1f} s, native {t2 - t1:.1f} s")
     for line in kernels.build_log.splitlines():
-        if "registers" in line or "spill" in line:
+        if ("registers" in line or "spill" in line
+                or "entry function" in line):
             log("  " + line.strip())
 
     # ---- graph and reads (shared by phases 3 and 4)

@@ -13,6 +13,8 @@ build/kernels/libmgt_cuda.so, which is loaded with ctypes at first use
 
 --fmad=false keeps every float multiply and add separately rounded:
 the chain penalty and the fast log2 must round as the reference does.
+A kernel that fuses where fusing is exact spells it out (__fmaf_rn in
+probe.cu, whose products and partial sums are integers below 2^24).
 
 `launches` counts kernel launches per kernel; `launch` adds one each
 time it starts a kernel and nowhere else, so a run can show that its
@@ -43,13 +45,13 @@ NVCC_FLAGS = ["-gencode", ARCH, "-O3", "--fmad=false", "-std=c++17",
 KERNELS = {
     "sketch": ("sketch.cu", "mgt_cuda_sketch_planes", "ppiiiipppppppp"),
     "chain_exact": ("chain_exact.cu", "mgt_cuda_chain_exact",
-                    "pppppiiiiiiiiiffpppp"),
+                    "pppppiiiiiiiiiffppp"),
     "chain_chunked": ("chain_chunked.cu", "mgt_cuda_chain_chunked",
                       "pppppiiiiiiiiffpppp"),
     "chain_ring": ("chain_ring.cu", "mgt_cuda_chain_ring",
                    "pppppiiiiiiffpp"),
-    "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiipp"),
-    "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiipp"),
+    "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiippp"),
+    "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiippp"),
     "wfa_banded": ("wfa_banded.cu", "mgt_cuda_wfa_banded", "ppppiiiiiiiip"),
 }
 

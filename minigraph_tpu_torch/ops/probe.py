@@ -78,6 +78,12 @@ def probe_bucketed_ref(sQ, keymat, keyext):
     return out.reshape(nb, EXT, B, qb).permute(1, 2, 0, 3).reshape(EXT, B, SB)
 
 
+def _work(nb, n_slots, device):
+    """The kernels' int32 scratch: nb present counts, then each bucket's
+    list of present slots (n_slots / nb entries a bucket)."""
+    return torch.empty((nb + n_slots,), dtype=torch.int32, device=device)
+
+
 def probe_bucketed(sQ, keymat, keyext):
     """Bucketed probe: the plain version for CPU tensors, the CUDA
     kernel (csrc/probe.cu, entry mgt_cuda_probe_bucketed) for tensors
@@ -91,8 +97,9 @@ def probe_bucketed(sQ, keymat, keyext):
     KB, EXT = keymat.shape[2], keyext.shape[1]
     out = torch.empty((EXT, B, SB), dtype=torch.float32, device=sQ.device)
     colsum = torch.empty((nb, EXT), dtype=torch.float32, device=sQ.device)
+    work = _work(nb, B * SB, sQ.device)
     kernels.launch("probe_bucketed", sQ.contiguous(), keymat.contiguous(),
-                   keyext.contiguous(), B, SB, nb, KB, EXT, colsum, out)
+                   keyext.contiguous(), B, SB, nb, KB, EXT, colsum, work, out)
     return out
 
 
@@ -123,6 +130,7 @@ def probe_flat(sQ, km_p, ke_p):
     Kpad, EXT = km.shape[2], ke.shape[1]
     out = torch.empty((EXT, B, qcap), dtype=torch.float32, device=sQ.device)
     colsum = torch.empty((EXT,), dtype=torch.float32, device=sQ.device)
+    work = _work(1, B * qcap, sQ.device)
     kernels.launch("probe_flat", sQ.contiguous(), km.contiguous(),
-                   ke.contiguous(), B, qcap, Kpad, EXT, colsum, out)
+                   ke.contiguous(), B, qcap, Kpad, EXT, colsum, work, out)
     return out

@@ -135,6 +135,25 @@ def test_chain_kernel_matches_ref(card, W, T, A, B, max_iter):
         assert torch.equal(a, b)
 
 
+# the two-pass kernel on broken-up chains: the 2 and 32 kb buckets'
+# windows, the 2048-row cap, an empty window and a small tile, each
+# with the max_iter clamp binding inside the window and without it
+@pytest.mark.parametrize("max_iter", [40, MAX_ITER])
+@pytest.mark.parametrize("W,T,A", [(512, 128, 1024), (768, 128, 2048),
+                                   (1920, 128, 2560), (0, 8, 256),
+                                   (64, 16, 512)])
+def test_chain_kernel_scrambled(card, W, T, A, max_iter):
+    rng = np.random.default_rng(W + A + max_iter)
+    planes = [t.to(card) for t in synth_planes(rng, 8, A, dense_frac=0.5,
+                                               scramble=0.3)]
+    args = (MDX, MDY, BW, MAX_SKIP, max_iter, PEN_GAP, PEN_SKIP)
+    got = lchain_dp_exact_win(*planes, *args, window=W, tile=T)
+    ref = lchain_dp_exact_win_ref(*planes, *args, window=W, tile=T)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (got[1] >= 0).any()
+
+
 @pytest.mark.parametrize("W,T,A,B", [(32, 256, 512, 16), (16, 64, 256, 8),
                                      (64, 8, 128, 5), (200, 16, 256, 4),
                                      (1, 8, 64, 3)])
@@ -277,6 +296,70 @@ def test_probe_bucketed_kernel_matches_ref(card, nb, qb, kb, B):
     assert torch.equal(got[:, present], ref[:, present])
     torch.testing.assert_close(got[:, ~present], ref[:, ~present],
                                rtol=kb * 2.0 ** -24, atol=0)
+
+
+def test_probe_bucketed_kernel_edges(card):
+    """A bucket with no present slot, KB not a multiple of the kernel's
+    key chunk, more present slots in a bucket than one block's tile, and
+    matches in the last key of a bucket."""
+    nb, qb, kb, B = 4, 16, 700, 64
+    rng = np.random.default_rng(11)
+    sq, km, ke = (t.numpy().copy() for t in probe_inputs(rng, nb, qb, kb, B))
+    # the last column of bucket 0 holds a key no other column holds
+    c = np.array([((1 << 35) >> (9 * i)) & 0x1FF for i in range(4)],
+                 np.float32)
+    km[0, 0:8:2, kb - 1] = 1.0
+    km[0, 1:8:2, kb - 1] = -2.0 * c
+    km[0, 8, kb - 1] = (c ** 2).sum()
+    ke[0, :, kb - 1] = rng.integers(0, 1 << 23, ke.shape[1])
+    ke[0, 1, kb - 1] = 1.0
+    # every slot of bucket 0 present (B * qb = 1024 slots), each the key
+    # of one of its columns (padding columns match nothing)
+    cols = rng.integers(0, kb, B * qb)
+    cols[::7] = kb - 1
+    cq = -km[0][1:8:2][:, cols] / 2.0
+    q = np.empty((9, B * qb), np.float32)
+    q[0:8:2], q[1:8:2], q[8] = cq * cq, cq, 1.0
+    sq[:, :, :qb] = q.reshape(9, B, qb)
+    sq[:, :, 2 * qb: 3 * qb] = 0.0          # bucket 2: all slots empty
+    sq, km, ke = (torch.from_numpy(a).to(card) for a in (sq, km, ke))
+    got = probe_bucketed(sq, km, ke)
+    ref = probe_bucketed_ref(sq, km, ke)
+    present = sq[8] != 0
+    assert int(present[:, :qb].sum()) == B * qb
+    assert torch.equal(got[:, present], ref[:, present])
+    torch.testing.assert_close(got[:, ~present], ref[:, ~present],
+                               rtol=kb * 2.0 ** -24, atol=0)
+    last = torch.from_numpy(cols == kb - 1).to(card).reshape(B, qb)
+    assert bool((got[1][:, :qb][last] == 1).all())
+    assert torch.equal(got[:, :, 2 * qb: 3 * qb],
+                       ref[:, :, 2 * qb: 3 * qb])
+
+
+def test_probe_kernel_repeated_keys(card):
+    """Keys held twice or three times in a bucket: a slot that matches
+    several keys gets their payloads summed in key order (payloads below
+    2^20, so every order gives the same exact sum)."""
+    nb, qb, kb, B = 2, 32, 600, 16
+    rng = np.random.default_rng(12)
+    sq, km, ke = (t.numpy().copy() for t in probe_inputs(rng, nb, qb, kb, B))
+    ke %= 1 << 20
+    for src, dst in ((3, 590), (3, 599), (17, 300), (40, 41)):
+        km[0, :, dst] = km[0, :, src]
+        ke[0, :, dst] = rng.integers(0, 1 << 20, ke.shape[1])
+        ke[0, 1, dst] = 1.0
+    cols = np.array([3, 17, 40, 5] * (B * qb // 4))
+    cq = -km[0][1:8:2][:, cols] / 2.0
+    q = np.empty((9, B * qb), np.float32)
+    q[0:8:2], q[1:8:2], q[8] = cq * cq, cq, 1.0
+    sq[:, :, :qb] = q.reshape(9, B, qb)
+    sq, km, ke = (torch.from_numpy(a).to(card) for a in (sq, km, ke))
+    got = probe_bucketed(sq, km, ke)
+    ref = probe_bucketed_ref(sq, km, ke)
+    present = sq[8] != 0
+    assert torch.equal(got[:, present], ref[:, present])
+    # ext[1] counts the matched keys: 3, 2, 2 and 1
+    assert sorted(set(got[1][:, :4].flatten().tolist())) == [1.0, 2.0, 3.0]
 
 
 @pytest.mark.parametrize("qcap,kpad,B", [(24, 512, 8), (384, 2048, 16)])

@@ -11,7 +11,12 @@ its output is the bucket's payload column sum, which here exceeds 2^24
 and so depends on the order of summation: the JAX versions sum in
 float32, the port exactly and rounds once.  Those slots are held to a
 relative tolerance of KB * 2^-24, the bound on the error of a float32
-sum of KB non-negative terms in any order."""
+sum of KB non-negative terms in any order.
+
+The CUDA kernel computes D with fused multiply-adds; the guard at the
+end checks, on the tables and queries that the port builds from a
+graph, that this is exact: every product and partial sum is an integer
+below 2^24, and the fused sum equals the separately rounded one."""
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -21,7 +26,7 @@ import torch
 from minigraph_tpu.ops.anchors_bucketed import probe_xla
 from minigraph_tpu.ops.probe_pallas import (probe_bucketed_pallas,
                                             probe_flat_traced)
-from minigraph_tpu_torch.ops.probe import (probe_bucketed,
+from minigraph_tpu_torch.ops.probe import (NF, probe_bucketed,
                                            probe_bucketed_ref, probe_flat,
                                            probe_flat_ref)
 
@@ -152,3 +157,68 @@ def test_probe_checks_shapes(bucketed):
         probe_bucketed(t[0].double(), t[1], t[2])
     with pytest.raises(ValueError):
         probe_flat(t[0], t[1], t[2])                  # four buckets
+
+
+@pytest.fixture(scope="module")
+def graph_probes(tmp_path_factory):
+    """(key matrix, queries) of the flat and the bucketed probe, as the
+    port builds them on a synthetic bubble graph and reads off it."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.ops.anchors import (JoinIndex, flat_queries,
+                                                 step_queries)
+    from minigraph_tpu_torch.ops.anchors_bucketed import (BucketedJoinIndex,
+                                                          spread_queries)
+    from minigraph_tpu_torch.ops.sketch import encode_batch, sketch_planes
+    from minigraph_tpu_torch.tools.synth import (make_reference,
+                                                 simulate_reads,
+                                                 write_bubble_rgfa)
+    path = str(tmp_path_factory.mktemp("fma") / "g.gfa")
+    ref = make_reference(60_000, seed=61)
+    hap = write_bubble_rgfa(ref, 62, path, seg_len=20_000)
+    gi = build_index(read_gfa(path), 17, 11)
+    reads = [s for _, s in simulate_reads([hap, ref], 8, seed=63,
+                                          mean_len=700, min_len=200,
+                                          max_len=1000)]
+    codes, lens = encode_batch(reads, pad_to=1024)
+    sp = sketch_planes(torch.from_numpy(codes), torch.from_numpy(lens), 11,
+                       17)
+    flat = JoinIndex.from_host(gi, 16, "cpu")
+    bkt = BucketedJoinIndex.from_host(gi, 16, "cpu")
+    qhh, qhl, _, _, qvalid = step_queries(*sp[:6], 256)
+    sf, _, _ = spread_queries(*sp[:6], bkt.keymat.shape[0], qcap=256)
+    return {"flat": (flat.km_p, flat_queries(qhh, qhl, qvalid)),
+            "bucketed": (bkt.keymat, sf[:9])}
+
+
+@pytest.mark.parametrize("kind", ["flat", "bucketed"])
+def test_fused_distance_is_exact(graph_probes, kind):
+    km, sq = (t.numpy() for t in graph_probes[kind])
+    nb, _, KB = km.shape
+    _, B, SB = sq.shape
+    q = sq.reshape(NF, B, nb, SB // nb).transpose(2, 0, 1, 3) \
+        .reshape(nb, NF, -1)
+    assert np.array_equal(km, np.rint(km)) and np.array_equal(q, np.rint(q))
+    lim = float(1 << 24)
+    matches = 0
+    for v in range(nb):
+        for c0 in range(0, q.shape[2], 256):
+            qv = q[v, :, c0: c0 + 256]                      # (9, n)
+            exact = np.zeros((qv.shape[1], KB))
+            fused = unfused = None
+            for f in range(NF):
+                prod = np.outer(qv[f].astype(np.float64), km[v, f])
+                exact += prod
+                assert np.abs(prod).max() < lim and np.abs(exact).max() < lim
+                p32 = (qv[f][:, None] * km[v, f][None, :]).astype(np.float32)
+                if f == 0:
+                    fused = unfused = p32
+                else:
+                    # one rounding of the exact a*b + c: float64 holds it
+                    fused = (prod + fused.astype(np.float64)).astype(
+                        np.float32)
+                    unfused = unfused + p32
+            np.testing.assert_array_equal(fused, unfused)
+            np.testing.assert_array_equal(fused, exact.astype(np.float32))
+            matches += int((fused == 0).sum())
+    assert matches > 50
