@@ -14,6 +14,9 @@ Phases, in order; any failure exits non-zero:
    (K2) and the chunked-walk chain kernel (K3) on the same anchors from
    the real collect at each bucket's (B, A, W, T), the batch padded with
    empty reads to the bucket's width, K3's sure flags equal to K2's;
+   each timed with CUDA events over back-to-back wrapper calls and, for
+   K1-K3, replayed from a CUDA graph (the device time without the
+   wrapper's host cost);
 4. main path at real size: a 5 Mb MHC-class synthetic reference as an
    rGFA bubble graph (its index has well over 1e5 keys, so the hash
    join runs), 1024 reads of 800-1900 bp plus 128 reads of ~15 kb mean
@@ -39,7 +42,9 @@ Phases, in order; any failure exits non-zero:
    them with a length skew beyond the band; the kernel against its
    plain version, bitwise.
 
-Prints the kernels' JSON line, then the card's name and power limit,
+After the build it prints ptxas' registers, stack frame and spills of
+the sketch and chunked-chain kernels.  Prints the kernels' JSON line,
+then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
 """
@@ -87,6 +92,39 @@ def cuda_time(fn, reps):
     e1.record()
     torch.cuda.synchronize()
     return e0.elapsed_time(e1) / reps
+
+
+def ptxas_lines(log, names):
+    """One line per kernel named in `names`: registers, stack frame and
+    spills as nvcc -Xptxas -v reported them in the build log."""
+    info, cur = {}, None
+    for line in log.splitlines():
+        if "Compiling entry function" in line:
+            cur = next((n for n in names if n in line), None)
+        elif cur and ("stack frame" in line or "registers" in line):
+            info.setdefault(cur, []).append(line.split(":")[-1].strip()
+                                            if "registers" in line
+                                            else line.strip())
+    missing = [n for n in names if n not in info]
+    if missing:
+        raise AssertionError(f"no ptxas report for {missing}")
+    return [f"ptxas {n}: " + "; ".join(info[n]) for n in names]
+
+
+def graph_time(fn, reps):
+    """Mean ms of fn() captured once in a CUDA graph and replayed: the
+    call's device work without the host's Python and launch cost."""
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()                 # warm-up off the capturing stream
+    torch.cuda.current_stream().wait_stream(side)
+    g = torch.cuda.CUDAGraph()
+    # relaxed: the chain wrappers raise a kernel's shared-memory limit
+    # (cudaFuncSetAttribute) on every call, which global capture refuses
+    with torch.cuda.graph(g, capture_error_mode="relaxed"):
+        fn()
+    return cuda_time(g.replay, reps)
 
 
 def bound(nbytes, ops):
@@ -139,6 +177,7 @@ def check_sketch(rng, B, L, w, k, reps):
     if err or not torch.equal(got.overflow, ref.overflow):
         raise AssertionError(f"sketch kernel differs at ({B}, {L}): {err}")
     ms = cuda_time(lambda: sk.sketch_planes(c, n, w, k), reps)
+    graph_ms = graph_time(lambda: sk.sketch_planes(c, n, w, k), 5 * reps)
     plain = cuda_time(lambda: sk.sketch_planes_ref(c, n, w, k), 2)
     # the function's own traffic: u8 codes and i32 lens in; six u32
     # planes of L+1 words, the i32 count and the flag out (the port holds
@@ -148,8 +187,10 @@ def check_sketch(rng, B, L, w, k, reps):
     bound = max(nbytes / HBM_BYTES_PER_S, ops / SCALAR_OPS_PER_S) * 1e3
     log(f"sketch ({B}, {L}): bitwise equal ({int(got.overflow.sum())} "
         f"overflow lanes, {int(got.n.sum())} emissions); kernel "
-        f"{ms:.4f} ms, plain {plain:.3f} ms, bound {bound:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
+        f"{ms:.4f} ms ({graph_ms:.4f} ms replayed from a CUDA graph), "
+        f"plain {plain:.3f} ms, bound {bound:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain,
             "bound_ms": bound,
             "bound_by": "bytes" if nbytes / HBM_BYTES_PER_S
             >= ops / SCALAR_OPS_PER_S else "operations"}
@@ -212,6 +253,8 @@ def check_chain(args, W, T, reps):
                              f"T={T}: {err}")
     ms = cuda_time(lambda: ce.lchain_dp_exact_win(*args, window=W, tile=T),
                    reps)
+    graph_ms = graph_time(
+        lambda: ce.lchain_dp_exact_win(*args, window=W, tile=T), 2 * reps)
     n_a = args[4].to(torch.int64).cpu().numpy()
     # candidate rows this data needs: anchor i scans W + (i mod T) rows
     # above the start of its tile, minus those before the read start
@@ -222,10 +265,11 @@ def check_chain(args, W, T, reps):
     bms, by = bound(chain_bytes(args), rows * CHAIN_OPS_PER_ROW)
     sure = int(got[2].sum())
     log(f"chain ({B}, {A}, W={W}, T={T}): bitwise equal, {sure}/{B} sure,"
-        f" n_a mean {n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms,"
-        f" plain {plain:.1f} ms, bound {bms:.4f} ms")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by}, got[2]
+        f" n_a mean {n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms"
+        f" ({graph_ms:.4f} ms replayed from a CUDA graph), plain "
+        f"{plain:.1f} ms, bound {bms:.4f} ms")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by}, got[2]
 
 
 def check_chunked(args, W, T, reps, k2, k2_sure):
@@ -248,6 +292,8 @@ def check_chunked(args, W, T, reps, k2, k2_sure):
                              f"exact chain's at {(B, A)}")
     ms = cuda_time(lambda: cc.lchain_dp_chunked(*args, window=W, tile=T),
                    reps)
+    graph_ms = graph_time(
+        lambda: cc.lchain_dp_chunked(*args, window=W, tile=T), 2 * reps)
     # rows the walk evaluated on this data: the top 128 (capped at i)
     # of every anchor, 64 per block walked
     rows = walk["top"] + 64 * walk["blocks"]
@@ -256,10 +302,16 @@ def check_chunked(args, W, T, reps, k2, k2_sure):
     log(f"chunked chain ({B}, {A}, W={W}, T={T}): bitwise equal, sure "
         f"flags equal to K2's ({int(got[2].sum())}/{B}); {walk['blocks']} "
         f"blocks walked over {n_anchor} anchors ({rows} rows); kernel "
-        f"{ms:.4f} ms against K2's {k2['ms']:.4f} ms, plain {plain:.1f} ms, "
-        f"bound {bms:.4f} ms ({by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "k2_ms": k2["ms"]}
+        f"{ms:.4f} ms against K2's {k2['ms']:.4f} ms (K3/K2 "
+        f"{ms / k2['ms']:.3f}); replayed from a CUDA graph {graph_ms:.4f} "
+        f"ms against K2's {k2['graph_ms']:.4f} ms (K3/K2 "
+        f"{graph_ms / k2['graph_ms']:.3f}); plain {plain:.1f} ms, bound "
+        f"{bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "k2_ms": k2["ms"], "k3_over_k2": ms / k2["ms"],
+            "k2_graph_ms": k2["graph_ms"],
+            "k3_over_k2_graph": graph_ms / k2["graph_ms"]}
 
 
 def check_buckets(front, batches, reps):
@@ -596,6 +648,12 @@ def main() -> int:
         if ("registers" in line or "spill" in line
                 or "entry function" in line):
             log("  " + line.strip())
+    if kernels.build_log:
+        for line in ptxas_lines(kernels.build_log,
+                                ("sketch_kernel", "chunked_kernel")):
+            log(line)
+    else:
+        log("ptxas: the kernel library was up to date, no build this run")
 
     # ---- graph and reads (shared by phases 3 and 4)
     work = Path(__file__).resolve().parent / "build" / "smoke"

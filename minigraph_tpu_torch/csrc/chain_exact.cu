@@ -64,7 +64,6 @@ constexpr int THREADS = 32 * NWARPS;
 constexpr int A_THREADS = 32 * 12;   // part A: the warps with warp % 4 != 0
 constexpr int MAX_ROWS = 2048;   // W + T
 constexpr int MOFF = MAX_ROWS;   // marked-bit offset, > W
-constexpr int INT_MIN32 = -0x7FFFFFFF - 1;
 // per-anchor results of part A: best, its row, f max, its row, counts,
 // overflow
 constexpr int NPRE = 6;
@@ -95,25 +94,6 @@ __host__ __device__ inline int64_t smem_bytes(int W, int T, int A)
     const int64_t set = (int64_t)G * valid_words(W, T) + G * NU + NPRE * G;
     return 4 * (5 * (int64_t)ring_rows(W, T) + marked_words(A) + 2 * set)
         + 2 * G * NU;
-}
-
-// bits of a 32-row word whose position is above d
-__device__ __forceinline__ unsigned above(int d)
-{
-    return d < 0 ? FULL : d >= 31 ? 0u : FULL << (d + 1);
-}
-
-__device__ __forceinline__ void lex_max(int &v, int &vj, int x, int j)
-{
-    if (x > v || (x == v && j > vj)) { v = x; vj = j; }
-}
-
-// lexicographic (value, row) max over the warp, two redux.sync
-__device__ __forceinline__ void warp_lexmax(int &v, int &j)
-{
-    const int m = __reduce_max_sync(FULL, v);
-    j = __reduce_max_sync(FULL, v == m ? j : INT_MIN32);
-    v = m;
 }
 
 // the 32 marked bits of rows [r0, r0 + 32) (r0 >= -MOFF)

@@ -13,6 +13,7 @@ namespace {
 
 constexpr int NEG_BIG = -0x3FFFFFFF;
 constexpr unsigned FULL = 0xFFFFFFFFu;
+constexpr int INT_MIN32 = -0x7FFFFFFF - 1;
 
 // mg_log2 (mgpriv.h:63-71), one rounding per operation; valid for z >= 2
 __device__ __forceinline__ float mg_log2(float z)
@@ -60,20 +61,23 @@ __device__ __forceinline__ int sc_valid(int tp_i, int qp_i, int tp_j,
     return bad ? NEG_BIG : sc;
 }
 
-// lexicographic (value, index) max across the warp
-__device__ __forceinline__ void warp_argmax(int &v, int &j)
+// bits of a 32-row word whose position is above d
+__device__ __forceinline__ unsigned above(int d)
 {
-    for (int o = 16; o > 0; o >>= 1) {
-        const int v2 = __shfl_xor_sync(FULL, v, o);
-        const int j2 = __shfl_xor_sync(FULL, j, o);
-        if (v2 > v || (v2 == v && j2 > j)) { v = v2; j = j2; }
-    }
+    return d < 0 ? FULL : d >= 31 ? 0u : FULL << (d + 1);
 }
 
-__device__ __forceinline__ int warp_sum(int x)
+__device__ __forceinline__ void lex_max(int &v, int &vj, int x, int j)
 {
-    for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(FULL, x, o);
-    return x;
+    if (x > v || (x == v && j > vj)) { v = x; vj = j; }
+}
+
+// lexicographic (value, row) max over the warp, two redux.sync
+__device__ __forceinline__ void warp_lexmax(int &v, int &j)
+{
+    const int m = __reduce_max_sync(FULL, v);
+    j = __reduce_max_sync(FULL, v == m ? j : INT_MIN32);
+    v = m;
 }
 
 }  // namespace

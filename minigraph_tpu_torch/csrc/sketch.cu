@@ -5,33 +5,45 @@
 // bitwise against the plain PyTorch version ops/sketch.py
 // sketch_planes_ref (a port of ops/sketch_jax4.py sketch_planes).
 //
-// What bounds it on an H100: neither bytes nor arithmetic peaks.  The
-// kernel reads one byte per base and writes six 8-byte plane words per
-// slot (~49 B/slot, ~25 MB for a 256 x 2 kb batch, ~8 us at HBM rate);
-// the work is ~40 integer operations per base for the k-mer registers
-// and the 64-bit hash plus ~5w compares for the window minimum and the
-// tie rules.  The sequential dependence along a read is what costs: the
-// window minimum at t depends on the state at t-1.
+// What bounds it on an H100: the bytes.  The kernel reads one byte per
+// base and writes six plane words per slot (int64 words holding u32
+// values, the port's convention: ~49 B a slot, ~25 MB for a 256 x 2 kb
+// batch, ~7.5 us at HBM rate); the work is ~40 integer operations a
+// base for the k-mer and the 64-bit hash plus ~2w compares for the two
+// window minima and the tie rules.
 //
-// Design: one thread per (read, 32-slot tile), with no state carried
-// between threads.  Every quantity the emission rules read is local:
-// the run length of valid bases is only used clamped to w+k, the k-mer
-// registers need the last k bases, and the window minimum needs the
-// last w events, so each thread rescans a (2w+k)-base halo before its
-// tile and then runs the reference state machine over its 32 slots
-// (the same no-carry argument as the TPU kernel's halo).  The halo
-// costs ~2x redundant work at w=11, k=17 and buys a grid of B*L/32
-// independent threads.  The 64-bit hash is native uint64 arithmetic
-// (the TPU kernel needed (hi, lo) u32 pairs).  Per-read counts (n) and
-// flags (overflow) are combined with integer atomics, which are
-// order-independent.
+// Design: one thread a slot, one block a (read, S-slot tile), with no
+// state carried between slots.  Every quantity the emission rules read
+// is local, as in the TPU kernel: the run length l of valid bases is
+// only used clamped to w + k, the k-mer needs the last k bases, and the
+// window minima at t and t - 1 need the events t - w .. t.  So a block
+//  1. stages the bases [p0 - H, p0 + S), H = w + k + 1, in shared memory
+//     (one coalesced byte load a base; positions outside [0, n_len) and
+//     codes >= 4 staged as 4, invalid);
+//  2. computes the event (hash << 8 | span, meta) of each slot of the
+//     tile and of the w positions before it from the staged bases, one
+//     thread each, into shared memory;
+//  3. per slot, takes the newest minimum M' of the events t - w + 1 ..
+//     t - 1 in one pass of w - 1 compares, and from it the minima at t
+//     (event t against M') and at t - 1 (M' against event t - w): ties
+//     go to the newer event, as the reference's scan;
+//  4. applies the emission and tie rules of sketch_planes_ref (the end
+//     of read at slot n_len, the widening slot L included) and stores the
+//     six planes coalesced, neighbouring threads on neighbouring slots;
+//  5. sums the read's emissions and ORs its overflow within the block,
+//     one integer atomic each a block (order-independent).
+// No array is indexed at run time outside shared memory, so nothing
+// lands in a local-memory stack frame.  The 64-bit hash is native
+// uint64 arithmetic (the TPU kernel needed (hi, lo) u32 pairs).
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int TILE = 32;
+constexpr int S = 256;           // slots a block, one a thread
 constexpr int MAXW = 32;
+constexpr int MAXK = 27;
+constexpr int MAXH = MAXW + MAXK + 1;
 constexpr uint64_t EMPTY = (1ull << 62) | 0xFFull;   // ops/sketch.py _EMPTY
 constexpr uint32_t UMAX = 0xFFFFFFFFu;
 constexpr int META_Q_BITS = 25;
@@ -54,130 +66,164 @@ __device__ __forceinline__ void put(int64_t *hh, int64_t *hl, int64_t *mm,
     if (m == UMAX) {
         hh[o] = UMAX; hl[o] = UMAX; mm[o] = UMAX;
     } else {
-        uint64_t h = x >> 8;
+        const uint64_t h = x >> 8;
         hh[o] = (int64_t)(h >> 32);
         hl[o] = (int64_t)(h & 0xFFFFFFFFull);
         mm[o] = (int64_t)m;
     }
 }
 
-__global__ void sketch_kernel(const uint8_t *__restrict__ codes,
-                              const int32_t *__restrict__ lens,
-                              int B, int L, int w, int k,
-                              int64_t *hh, int64_t *hl, int64_t *meta,
-                              int64_t *thh, int64_t *thl, int64_t *tmeta,
-                              int32_t *n_out, int32_t *ovf_out)
+// the event at position q, staged at sb[e]: l = the valid bases ending
+// at q, clamped to lmax (>= k)
+__device__ __forceinline__ void event(const uint8_t *sb, int e, int q, int k,
+                                      int lmax, uint64_t mask, uint64_t &x,
+                                      uint32_t &m, int &l)
 {
-    const int ntile = (L + 1 + TILE - 1) / TILE;
-    const int64_t gid = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-    if (gid >= (int64_t)B * ntile) return;
-    const int b = (int)(gid / ntile);
-    const int p0 = (int)(gid % ntile) * TILE;
-    const int p1 = min(p0 + TILE, L + 1);
-    const int pend = min(p1, L);
-    const int n_len = lens[b];
-    const uint8_t *row = codes + (int64_t)b * L;
-    const int64_t orow = (int64_t)b * (L + 1);
-    const uint64_t mask = (k >= 32) ? ~0ull : ((1ull << (2 * k)) - 1);
-    const int wk = w + k;
-
     uint64_t kf = 0, kr = 0;
-    int l = 0;
-    uint64_t rx[MAXW];
-    uint32_t rm[MAXW];
-    for (int j = 0; j < w; ++j) { rx[j] = EMPTY; rm[j] = UMAX; }
-    int head = 0;                  // ring slot of the oldest event
-    uint64_t pm_x = EMPTY;         // window-min state at t-1
-    uint32_t pm_m = UMAX;
-    int pm_ev = -1;
-    int cnt = 0, flag = 0;
-
-    for (int i = p0 - (2 * w + k); i < pend; ++i) {
-        const bool in_range = i >= 0 && i < n_len;
-        const int code = in_range ? row[i] : 4;
-        const bool valid = in_range && code < 4;
-        const uint64_t cv = valid ? (uint64_t)code : 0ull;
-        kf = ((kf << 2) | cv) & mask;
-        kr = (kr >> 2) | ((3ull ^ cv) << (2 * (k - 1)));
-        l = valid ? min(l + 1, wk) : 0;
+    int run = 0;
+    for (; run < lmax; ++run) {
+        const uint32_t c = sb[e - run];
+        if (c >= 4) break;
+        if (run < k) {
+            kf |= (uint64_t)c << (2 * run);
+            kr |= (uint64_t)(3u ^ c) << (2 * (k - 1 - run));
+        }
+    }
+    l = run;
+    if (run >= k) {
         const bool z = kf >= kr;
         const uint64_t h = hash64(z ? kr : kf, mask);
-        const int span = min(l, k);
-        const bool has_info = valid && l >= k;
-        const uint64_t ex = has_info ? ((h << 8) | (uint64_t)span) : EMPTY;
-        const uint32_t em = has_info
-            ? (((uint32_t)span << (META_Q_BITS + 1)) | ((uint32_t)i << 1)
-               | (uint32_t)z)
-            : UMAX;
-        // push: the oldest slot becomes the newest
-        rx[head] = ex;
-        rm[head] = em;
-        head = head + 1 == w ? 0 : head + 1;
-        // newest minimum over the window, scanned oldest to newest
-        uint64_t m_x = EMPTY;
-        uint32_t m_m = UMAX;
-        int m_j = 0;
-        for (int j = 0, r = head; j < w; ++j, r = (r + 1 == w ? 0 : r + 1)) {
-            if (j == 0 || rx[r] <= m_x) { m_x = rx[r]; m_m = rm[r]; m_j = j; }
-        }
-        const int m_ev = i - w + 1 + m_j;
+        x = (h << 8) | (uint64_t)k;            // span = min(l, k) = k
+        m = ((uint32_t)k << (META_Q_BITS + 1)) | ((uint32_t)q << 1)
+            | (uint32_t)z;
+    } else {
+        x = EMPTY;
+        m = UMAX;
+    }
+}
 
-        if (i >= p0) {
-            const int64_t o = orow + i;
-            if (i == n_len) {
-                // end-of-read emission parked at slot n_len
-                const bool fin_ok = n_len > 0 && pm_x != EMPTY;
-                put(hh, hl, meta, o, pm_x, fin_ok ? pm_m : UMAX);
-                cnt += fin_ok;
-                put(thh, thl, tmeta, o, EMPTY, UMAX);
-            } else {
-                const bool pmv_ok = pm_x != EMPTY;
-                const bool mval_ok = m_x != EMPTY;
-                const bool A = ex <= pm_x;
-                const bool Bc = in_range && !A && pm_ev == i - w;
-                const bool emitA = in_range && A && l >= wk && pmv_ok;
-                const bool emitB = Bc && l >= wk - 1 && pmv_ok;
-                const bool b_base = Bc && l >= wk - 1 && mval_ok;
-                const bool fw = in_range && l == wk - 1 && pmv_ok;
-                uint64_t t_x = EMPTY;
-                uint32_t t_m = UMAX;
-                int tie_n = 0;
-                bool tie_fw = false;
-                if (fw || b_base) {
-                    for (int j = 0, r = head; j < w;
-                         ++j, r = (r + 1 == w ? 0 : r + 1)) {
-                        if (j < w - 1 && fw && rx[r] == pm_x && rm[r] != pm_m) {
-                            if (tie_n == 0) { t_x = rx[r]; t_m = rm[r]; }
-                            ++tie_n;
-                            tie_fw = true;
-                        }
-                        if (b_base && rx[r] == m_x && rm[r] != m_m) {
-                            if (tie_n == 0) { t_x = rx[r]; t_m = rm[r]; }
-                            ++tie_n;
-                        }
-                    }
+__global__ void __launch_bounds__(S)
+sketch_kernel(const uint8_t *__restrict__ codes,
+              const int32_t *__restrict__ lens, int L, int w, int k,
+              int ntile, int64_t *hh, int64_t *hl, int64_t *meta,
+              int64_t *thh, int64_t *thl, int64_t *tmeta, int32_t *n_out,
+              int32_t *ovf_out)
+{
+    __shared__ uint8_t sb[MAXH + S];        // bases [p0 - H, p0 + S)
+    __shared__ uint64_t sx[MAXW + S];       // events [p0 - w, p0 + S)
+    __shared__ uint32_t sm[MAXW + S];
+    __shared__ int red[2 * (S / 32)];
+    const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+    const int b = blockIdx.x / ntile;
+    const int p0 = (blockIdx.x % ntile) * S;
+    const int H = w + k + 1, wk = w + k;
+    const int n_len = lens[b];
+    const uint8_t *row = codes + (int64_t)b * L;
+    const uint64_t mask = (1ull << (2 * k)) - 1;
+
+    for (int e = tid; e < H + S; e += S) {
+        const int q = p0 - H + e;
+        uint32_t c = 4;
+        if (q >= 0 && q < n_len && q < L) c = row[q];
+        sb[e] = c < 4 ? (uint8_t)c : (uint8_t)4;
+    }
+    __syncthreads();
+
+    const int t = p0 + tid;              // this thread's slot
+    uint64_t ex;
+    uint32_t em;
+    int l;
+    event(sb, H + tid, t, k, wk, mask, ex, em, l);
+    sx[w + tid] = ex;
+    sm[w + tid] = em;
+    if (tid < w) {                       // the w positions before the tile
+        uint64_t x;
+        uint32_t m;
+        int l2;
+        event(sb, H - w + tid, p0 - w + tid, k, k, mask, x, m, l2);
+        sx[tid] = x;
+        sm[tid] = m;
+    }
+    __syncthreads();
+
+    // event j of this slot's windows sits at sx[tid + j], position
+    // t - w + j: the window at t is j = 1 .. w, the one at t - 1 j = 0 ..
+    // w - 1.  M' = the newest minimum of j = 1 .. w - 1 (EMPTY sorts
+    // last, so the first compare always takes).
+    uint64_t mx = EMPTY;
+    int mj = -1;
+    for (int j = 1; j < w; ++j) {
+        const uint64_t x = sx[tid + j];
+        if (x <= mx) { mx = x; mj = j; }
+    }
+    const bool cur_new = ex <= mx;       // the window minimum at t
+    const uint64_t m_x = cur_new ? ex : mx;
+    const int m_j = cur_new ? w : mj;
+    const uint64_t x0 = sx[tid];         // the window minimum at t - 1
+    const bool prev_old = mj < 0 || x0 < mx;
+    const uint64_t pm_x = prev_old ? x0 : mx;
+    const int pm_j = prev_old ? 0 : mj;
+    const uint32_t m_m = sm[tid + m_j], pm_m = sm[tid + pm_j];
+
+    const bool in_range = t < n_len;
+    const bool pmv_ok = pm_x != EMPTY;
+    uint32_t o_m = UMAX;                 // main plane: pm_x, or empty
+    uint64_t t_x = EMPTY;                // tie plane
+    uint32_t t_m = UMAX;
+    int cnt = 0, flag = 0;
+    if (t == n_len) {
+        // end-of-read emission parked at slot n_len (slot L when the read
+        // fills the batch width)
+        const bool fin_ok = n_len > 0 && pmv_ok;
+        if (fin_ok) o_m = pm_m;
+        cnt = fin_ok;
+    } else if (in_range) {
+        const bool A = ex <= pm_x;
+        const bool Bc = !A && pm_j == 0;     // the old minimum left
+        const bool emitA = A && l >= wk && pmv_ok;
+        const bool emitB = Bc && l >= wk - 1 && pmv_ok;
+        const bool b_base = Bc && l >= wk - 1 && m_x != EMPTY;
+        const bool fw = l == wk - 1 && pmv_ok;
+        int tie_n = 0;
+        bool tie_fw = false;
+        if (fw || b_base) {
+            // the first-window fold scans the w - 1 newest events of the
+            // window at t - 1 against its minimum; b_base the window at t
+            for (int j = 1; j <= w; ++j) {
+                const uint64_t x = sx[tid + j];
+                const uint32_t m = sm[tid + j];
+                if (j < w && fw && x == pm_x && m != pm_m) {
+                    if (tie_n == 0) { t_x = x; t_m = m; }
+                    ++tie_n;
+                    tie_fw = true;
                 }
-                const bool main_emit = emitA || emitB;
-                put(hh, hl, meta, o, pm_x, main_emit ? pm_m : UMAX);
-                put(thh, thl, tmeta, o, t_x, t_m);
-                cnt += (int)main_emit + (tie_n > 0);
-                flag |= (tie_n > 1) || (tie_fw && main_emit);
+                if (b_base && x == m_x && m != m_m) {
+                    if (tie_n == 0) { t_x = x; t_m = m; }
+                    ++tie_n;
+                }
             }
         }
-        pm_x = m_x;
-        pm_m = m_m;
-        pm_ev = m_ev;
+        const bool main_emit = emitA || emitB;
+        if (main_emit) o_m = pm_m;
+        cnt = (int)main_emit + (tie_n > 0);
+        flag = (tie_n > 1) || (tie_fw && main_emit);
     }
-    if (p1 == L + 1) {
-        // the widening slot L: the fin emission of a read that fills L
-        const int64_t o = orow + L;
-        const bool fin_ok = n_len == L && L > 0 && pm_x != EMPTY;
-        put(hh, hl, meta, o, pm_x, fin_ok ? pm_m : UMAX);
-        put(thh, thl, tmeta, o, EMPTY, UMAX);
-        cnt += fin_ok;
+    if (t <= L) {
+        const int64_t o = (int64_t)b * (L + 1) + t;
+        put(hh, hl, meta, o, pm_x, o_m);
+        put(thh, thl, tmeta, o, t_x, t_m);
     }
-    if (cnt) atomicAdd(n_out + b, cnt);
-    if (flag) atomicOr(ovf_out + b, 1);
+
+    cnt = __reduce_add_sync(0xFFFFFFFFu, cnt);
+    flag = (int)__reduce_or_sync(0xFFFFFFFFu, (unsigned)flag);
+    if (lane == 0) { red[warp] = cnt; red[S / 32 + warp] = flag; }
+    __syncthreads();
+    if (tid == 0) {
+        int c = 0, fl = 0;
+        for (int i = 0; i < S / 32; ++i) { c += red[i]; fl |= red[S / 32 + i]; }
+        if (c) atomicAdd(n_out + b, c);
+        if (fl) atomicOr(ovf_out + b, 1);
+    }
 }
 
 }  // namespace
@@ -187,14 +233,14 @@ extern "C" int mgt_cuda_sketch_planes(
     int64_t *hh, int64_t *hl, int64_t *meta, int64_t *thh, int64_t *thl,
     int64_t *tmeta, int32_t *n_out, int32_t *ovf_out, cudaStream_t stream)
 {
-    if (w < 1 || w > MAXW || k < 1 || k > 27 || B < 0 || L < 0)
+    if (w < 1 || w > MAXW || k < 1 || k > MAXK || B < 0 || L < 0)
         return (int)cudaErrorInvalidValue;
-    const int64_t nthreads = (int64_t)B * ((L + 1 + TILE - 1) / TILE);
-    if (nthreads == 0) return (int)cudaSuccess;
-    const int block = 128;
-    const unsigned grid = (unsigned)((nthreads + block - 1) / block);
-    sketch_kernel<<<grid, block, 0, stream>>>(codes, lens, B, L, w, k, hh,
-                                              hl, meta, thh, thl, tmeta,
-                                              n_out, ovf_out);
+    const int ntile = (L + 1 + S - 1) / S;   // slots 0 .. L
+    const int64_t nblocks = (int64_t)B * ntile;
+    if (nblocks == 0) return (int)cudaSuccess;
+    if (nblocks > 0x7FFFFFFF) return (int)cudaErrorInvalidValue;
+    sketch_kernel<<<(unsigned)nblocks, S, 0, stream>>>(
+        codes, lens, L, w, k, ntile, hh, hl, meta, thh, thl, tmeta, n_out,
+        ovf_out);
     return (int)cudaGetLastError();
 }

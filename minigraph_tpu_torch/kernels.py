@@ -47,7 +47,7 @@ KERNELS = {
     "chain_exact": ("chain_exact.cu", "mgt_cuda_chain_exact",
                     "pppppiiiiiiiiiffppp"),
     "chain_chunked": ("chain_chunked.cu", "mgt_cuda_chain_chunked",
-                      "pppppiiiiiiiiffpppp"),
+                      "pppppiiiiiiiiffppp"),
     "chain_ring": ("chain_ring.cu", "mgt_cuda_chain_ring",
                    "pppppiiiiiiffpp"),
     "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiippp"),

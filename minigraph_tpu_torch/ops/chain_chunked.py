@@ -199,11 +199,10 @@ def lchain_dp_chunked(axh, axl, ayh, ayl, n_a, max_dist_x: int,
     n_a32 = n_a.to(I32).contiguous()
     f = torch.empty((B, A), dtype=I32, device=dev)
     p = torch.empty((B, A), dtype=I32, device=dev)
-    cnt = torch.zeros((B, A), dtype=I32, device=dev)
     unc = torch.zeros((B,), dtype=I32, device=dev)
     kernels.launch("chain_chunked", xh, tp.contiguous(), qp.contiguous(),
                    sp.contiguous(), n_a32, B, A, int(window), int(tile),
                    int(max_dist_x), int(max_dist_y), int(bw),
                    int(max_skip), float(pen_gap), float(pen_skip), f, p,
-                   cnt, unc)
+                   unc)
     return f, p, unc == 0

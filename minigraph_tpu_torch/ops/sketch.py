@@ -230,13 +230,11 @@ def sketch_planes(codes: torch.Tensor, lens: torch.Tensor, w: int,
     codes = codes.contiguous()
     lens = lens.contiguous()
 
-    def plane():
-        return torch.empty((B, L + 1), dtype=torch.int64,
-                           device=codes.device)
-
-    hh, hl, meta, thh, thl, tmeta = (plane() for _ in range(6))
-    n = torch.zeros(B, dtype=torch.int32, device=codes.device)
-    ovf = torch.zeros(B, dtype=torch.int32, device=codes.device)
+    # one allocation for the six planes and one for the two counters
+    hh, hl, meta, thh, thl, tmeta = torch.empty(
+        (6, B, L + 1), dtype=torch.int64, device=codes.device).unbind(0)
+    n, ovf = torch.zeros((2, B), dtype=torch.int32,
+                         device=codes.device).unbind(0)
     kernels.launch("sketch", codes, lens, B, L, w, k, hh, hl, meta,
                    thh, thl, tmeta, n, ovf)
     return SketchPlanes(hh, hl, meta, thh, thl, tmeta, n, ovf != 0)

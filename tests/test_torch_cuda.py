@@ -111,6 +111,45 @@ def test_sketch_kernel_other_wk(card, w, k):
         assert torch.equal(a, b)
 
 
+def edge_codes(rng, L, S=256):
+    """Reads on and next to the kernel's S-slot tile boundaries: N runs
+    that straddle a boundary or end right before one, n_len at a
+    boundary, one before and one after it, n_len == L, reads shorter
+    than the halo, an empty read, and tandem repeats (ties)."""
+    lens = [min(n, L) for n in (0, 5, L, S, S - 1, S + 1, 2 * S, 2 * S - 1,
+                                19, L - 1, L - S)]
+    codes = rng.integers(0, 4, (len(lens), L)).astype(np.uint8)
+    for i, n in enumerate(lens):
+        for b in range(S, n + S, S):
+            if i % 2:
+                codes[i, max(0, b - 4): b + 6] = 4
+            else:
+                codes[i, max(0, b - 9): b] = 4
+        if i % 3 == 2 and n > 80:
+            st = int(rng.integers(0, n - 60))
+            codes[i, st: st + 60] = np.resize(
+                rng.integers(0, 4, int(rng.integers(1, 4))), 60)
+    return codes, np.array(lens, np.int32)
+
+
+# the kernel's tiling: tile edges, L not a multiple of the tile, the
+# widest window (w = 32) and w = 1
+@pytest.mark.parametrize("w,k,L", [(11, 17, 2048), (10, 19, 1000),
+                                   (5, 15, 777), (1, 15, 600),
+                                   (32, 17, 1300), (32, 27, 513)])
+def test_sketch_kernel_tile_edges(card, w, k, L):
+    rng = np.random.default_rng(w * 1000 + L)
+    c0, l0 = edge_codes(rng, L)
+    c1, l1 = synth_codes(rng, 16, L)
+    c = torch.from_numpy(np.concatenate([c0, c1])).to(card)
+    n = torch.from_numpy(np.concatenate([l0, l1])).to(card)
+    before = kernels.launches["sketch"]
+    got = sketch_planes(c, n, w, k)
+    assert kernels.launches["sketch"] == before + 1
+    for a, b in zip(got, sketch_planes_ref(c, n, w, k)):
+        assert torch.equal(a, b)
+
+
 def test_sketch_kernel_rejects_wide_window(card):
     c = torch.zeros((2, 64), dtype=torch.uint8, device=card)
     n = torch.full((2,), 64, dtype=torch.int32, device=card)
@@ -196,6 +235,52 @@ def test_chain_chunked_kernel_matches_ref(card, A, W, T, scramble):
                                                    tile=T)[2])
     if scramble:
         assert walk["blocks"] > 0
+
+
+# the two-pass kernel on broken-up chains at W = 128, the 2 and 32 kb
+# buckets' windows and the widest the kernel takes, with reads longer
+# than the window (they overflow it) and tiles of several groups
+@pytest.mark.parametrize("W,T,A", [(128, 128, 1024), (128, 16, 512),
+                                   (512, 128, 1024), (768, 128, 2048),
+                                   (768, 64, 1536), (2048, 128, 2560)])
+def test_chain_chunked_kernel_scrambled(card, W, T, A):
+    rng = np.random.default_rng(W + T + A)
+    planes = [t.to(card) for t in synth_planes(rng, 8, A, dense_frac=0.5,
+                                               scramble=0.5)]
+    args = (MDX, MDY, BW, MAX_SKIP, MAX_ITER, PEN_GAP, PEN_SKIP)
+    before = kernels.launches["chain_chunked"]
+    got = lchain_dp_chunked(*planes, *args, window=W, tile=T)
+    assert kernels.launches["chain_chunked"] == before + 1
+    walk = {}
+    ref = lchain_dp_chunked_ref(*planes, *args, window=W, tile=T, walk=walk)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert walk["blocks"] > 0 and (got[1] >= 0).any()
+    assert not got[2].all()
+
+
+def test_chain_chunked_kernel_shared_memory_limit(card):
+    """The read's marked bitmask grows with A: at 2^20 rows the block
+    still fits and matches; at 2^21 the launch is refused (RuntimeError),
+    never run on a smaller buffer."""
+    args = (MDX, MDY, BW, MAX_SKIP, MAX_ITER, PEN_GAP, PEN_SKIP)
+    for A, fits in ((1 << 20, True), (1 << 21, False)):
+        rng = np.random.default_rng(A)
+        small = synth_planes(rng, 1, 1024, dense_frac=0.5, scramble=0.5)
+        planes = [torch.full((1, A), 0xFFFFFFFF, dtype=torch.int64)
+                  for _ in range(4)]
+        for big, sm in zip(planes, small):
+            big[:, :1024] = sm
+        planes = [t.to(card) for t in planes] + [small[4].to(card)]
+        if fits:
+            got = lchain_dp_chunked(*planes, *args, window=128, tile=128)
+            ref = lchain_dp_chunked_ref(*planes, *args, window=128,
+                                        tile=128)
+            for a, b in zip(got, ref):
+                assert torch.equal(a, b)
+        else:
+            with pytest.raises(RuntimeError):
+                lchain_dp_chunked(*planes, *args, window=128, tile=128)
 
 
 def test_chain_chunked_kernel_rejects_bad_shapes(card):
