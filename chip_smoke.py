@@ -14,9 +14,9 @@ Phases, in order; any failure exits non-zero:
    (K2) and the chunked-walk chain kernel (K3) on the same anchors from
    the real collect at each bucket's (B, A, W, T), the batch padded with
    empty reads to the bucket's width, K3's sure flags equal to K2's;
-   each timed with CUDA events over back-to-back wrapper calls and, for
-   K1-K3, replayed from a CUDA graph (the device time without the
-   wrapper's host cost);
+   each timed with CUDA events over back-to-back wrapper calls and
+   replayed from a CUDA graph (the device time without the wrapper's
+   host cost), as are K4 and K7 in phases 5 and 6;
 4. main path at real size: a 5 Mb MHC-class synthetic reference as an
    rGFA bubble graph (its index has well over 1e5 keys, so the hash
    join runs), 1024 reads of 800-1900 bp plus 128 reads of ~15 kb mean
@@ -25,7 +25,11 @@ Phases, in order; any failure exits non-zero:
    K2 kernels must have launched, and at least 80% of eligible reads
    must stay on the device; then the device run again with
    MGT_CHAIN_CHUNKED=1: the same GAF bytes and reads on the device, K3
-   launched and K2 not;
+   launched and K2 not; then once more with the native batch tail
+   reporting a bail for every 40th read of a batch, which re-maps those
+   reads on the exact per-read path (mapping/mapper.py map_frag): the
+   same GAF bytes again.  It logs how many reads of the unforced runs
+   took the per-read path;
 5. batched map step (minigraph_tpu_torch/ops/pipeline.py) at bench.py's
    stage shape (B=512 short reads padded to 2048, acap=512, qcap=384,
    window=32, b_chunk=64, occ_cap=16): make_map_step_v3 with (a) the
@@ -43,7 +47,7 @@ Phases, in order; any failure exits non-zero:
    plain version, bitwise.
 
 After the build it prints ptxas' registers, stack frame and spills of
-the sketch and chunked-chain kernels.  Prints the kernels' JSON line,
+the sketch, chunked-chain, ring-chain and banded-score kernels.  Prints the kernels' JSON line,
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -353,16 +357,20 @@ def check_ring_chain(res, reps):
     if err:
         raise AssertionError(f"ring chain kernel differs: {err}")
     ms = cuda_time(lambda: lchain_dp_planes(*planes, window=W, tile=T), reps)
+    graph_ms = graph_time(lambda: lchain_dp_planes(*planes, window=W,
+                                                   tile=T), reps)
     B, A = planes[0].shape
     n_a = planes[4].to(torch.int64).cpu().numpy()
     # window rows these anchors visit: anchor i scores min(i, W) rows
     rows = sum(int(np.minimum(np.arange(n), W).sum()) for n in n_a.tolist())
     bms, by = bound(B * A * (4 * 4 + 2 * 4), rows * CHAIN_OPS_PER_ROW)
     log(f"ring chain ({B}, {A}, W={W}, T={T}): bitwise equal, n_a mean "
-        f"{n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms, plain "
+        f"{n_a.mean():.1f} max {n_a.max()}; kernel {ms:.4f} ms "
+        f"({graph_ms:.4f} ms replayed from a CUDA graph), plain "
         f"{plain:.1f} ms, bound {bms:.4f} ms ({by})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-            "bound_ms": bms, "bound_by": by, "library_ms": None}
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None}
 
 
 def probe_library(sq, km, ke, rows=16384):
@@ -486,6 +494,8 @@ def wfa_phase(ref, kernels, reps):
     if (scores[19::20] != -1).any():
         raise AssertionError("a pair skewed beyond the band was scored")
     ms = cuda_time(lambda: banded_score_planes(*planes, wa=WFA_WA), reps)
+    graph_ms = graph_time(lambda: banded_score_planes(*planes, wa=WFA_WA),
+                          reps)
     tseq, _, tl, ql = planes
     B, L = tseq.shape
     # the band's cells up to each pair's end anti-diagonal; the two
@@ -495,10 +505,34 @@ def wfa_phase(ref, kernels, reps):
     log(f"banded score ({B} pairs, L={L}, wa={WFA_WA}): bitwise equal; "
         f"{int((scores >= 0).sum())} scored, {int((scores < 0).sum())} "
         f"outside the band, mean score {scores[scores >= 0].mean():.1f}; "
-        f"kernel {ms:.4f} ms, plain {plain:.1f} ms, bound {bms:.4f} ms "
-        f"({by}); launches {launches}")
-    return launches, {"max_abs_err": err, "ms": ms, "plain_ms": plain,
-                      "bound_ms": bms, "bound_by": by, "library_ms": None}
+        f"kernel {ms:.4f} ms ({graph_ms:.4f} ms replayed from a CUDA "
+        f"graph), plain {plain:.1f} ms, bound {bms:.4f} ms ({by}); "
+        f"launches {launches}")
+    return launches, {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+                      "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+                      "library_ms": None}
+
+
+def forced_bail_run(path, reads, io_, mo, every):
+    """map_files on the card with the native batch tail reporting a bail
+    (status != 0) for every `every`-th read of each batch, so those
+    reads take the exact per-read path (mapping/mapper.py map_frag);
+    returns (GAF text, stats)."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.mapping import mapper
+    real = mapper.map_batch_native
+
+    def bailing(gi, opt, items, n_threads, host_collect=False):
+        res = real(gi, opt, items, n_threads, host_collect)
+        return {k: None if k % every == 0 else v for k, v in res.items()}
+    mapper.map_batch_native = bailing
+    try:
+        buf, st = io.StringIO(), {}
+        mapper.map_files(read_gfa(path), [reads], io_, mo, out=buf,
+                         n_threads=8, device="cuda", stats=st)
+    finally:
+        mapper.map_batch_native = real
+    return buf.getvalue(), st
 
 
 def first_diff(a, b):
@@ -650,7 +684,8 @@ def main() -> int:
             log("  " + line.strip())
     if kernels.build_log:
         for line in ptxas_lines(kernels.build_log,
-                                ("sketch_kernel", "chunked_kernel")):
+                                ("sketch_kernel", "chunked_kernel",
+                                 "chain_ring_kernel", "banded_kernel")):
             log(line)
     else:
         log("ptxas: the kernel library was up to date, no build this run")
@@ -721,6 +756,8 @@ def main() -> int:
         f"unsure, {st['n_flat_ovf']} flat refetches); launches {launches}")
     if share < 0.8:
         raise AssertionError(f"only {share:.1%} of eligible reads on device")
+    log(f"per-read path (native tail bailed): {st['n_perread']} reads of "
+        f"the device run, {st_host['n_perread']} of the host-only run")
     stages = {k: round(v, 3) for k, v in st["stage_ms"].items()}
     stages["tail_host"] = round(st["tail_ms"], 3)
     log(f"reads/s: device path {n_reads / (st['map_ms'] / 1e3):.1f} "
@@ -757,6 +794,18 @@ def main() -> int:
         f"{st_c['stage_ms']['chain']:.3f} ms against K2's "
         f"{st['stage_ms']['chain']:.3f} ms; map {st_c['map_ms']:.0f} ms; "
         f"launches {launches_c}")
+
+    # ---- 4, once more: bails forced for every 40th read of a batch
+    forced_gaf, st_f = forced_bail_run(str(work / "mhc5m.gfa"),
+                                       str(work / "reads.fa"), io_, mo, 40)
+    if forced_gaf != host_gaf:
+        raise AssertionError(f"GAF with forced per-read fallbacks differs "
+                             f"at line {first_diff(forced_gaf, host_gaf)}")
+    if st_f["n_perread"] <= 0:
+        raise AssertionError("the forced run took no read off the batch")
+    log(f"main path with forced bails: {st_f['n_perread']} reads re-mapped "
+        f"on the per-read path, GAF bytes equal to the unforced run; map "
+        f"{st_f['map_ms']:.0f} ms")
 
     # ---- 5. batched map step
     flat_ref = make_reference(400_000, seed=47)

@@ -39,6 +39,18 @@ class MinimizerIndex:
         self.pos: np.ndarray = np.empty(0, dtype=np.uint64)       # y records
         self.es: List[EdSeq] = []
 
+    def get_many(self, miniers: np.ndarray):
+        """(start, count) of each query minimizer (count 0 when absent)."""
+        if len(self.keys) == 0:
+            z = np.zeros(len(miniers), dtype=np.int64)
+            return z, z.copy()
+        idx = np.minimum(np.searchsorted(self.keys, miniers),
+                         len(self.keys) - 1)
+        found = self.keys[idx] == miniers
+        start = np.where(found, self.key_start[idx], 0)
+        cnt = np.where(found, self.key_cnt[idx], 0)
+        return start.astype(np.int64), cnt.astype(np.int64)
+
     def cal_quantile(self, fracs) -> List[int]:
         """Occurrence quantiles over distinct minimizers (index.c:74-93)."""
         counts = self.key_cnt.astype(np.uint32)

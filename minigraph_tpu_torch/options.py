@@ -13,7 +13,14 @@ MG_M_SHOW_UNMAP = 0x100000
 MG_M_NO_COMP_PATH = 0x200000
 MG_M_NO_DIAG = 0x400000
 MG_M_CIGAR = 0x4000000
-MG_MAX_SHORT_K = 15   # mgpriv.h
+# seed flags (mgpriv.h:18-27)
+MG_SEED_IGNORE = 1 << 41
+MG_SEED_TANDEM = 1 << 42
+MG_SEED_FIXED = 1 << 43
+MG_MAX_SEG = 255
+MG_SEED_SEG_SHIFT = 48
+MG_SEED_OCC_SHIFT = 56
+MG_MAX_SHORT_K = 15
 
 
 @dataclass
@@ -54,6 +61,7 @@ class MapOptions:
     lc_max_trim: int = 50
     lc_max_occ: int = 2
     mask_level: float = 0.5
+    sub_diff: int = 6
     best_n: int = 5
     pri_ratio: float = 0.8
     ref_bonus: int = 0

@@ -208,6 +208,52 @@ def test_chain_ring_kernel_matches_ref(card, W, T, A, B):
         assert torch.equal(a, b)
 
 
+def tie_planes(rng, B, A):
+    """Anchors with exact duplicates (tied sc + f, the smallest anchor
+    index wins), in every fourth read a run of 40 of them (ties 32 ring
+    slots apart, inside one lane), a qpos jump past max_dist_x (refused
+    pairs), n_a = 0 and n_a = A."""
+    U = 0xFFFFFFFF
+    pl = [np.full((B, A), U, np.int64) for _ in range(4)]
+    n_a = rng.integers(1, A + 1, B).astype(np.int32)
+    n_a[0], n_a[-1] = 0, A
+    for b in range(B):
+        n = int(n_a[b])
+        if n == 0:
+            continue
+        vid = np.sort(rng.integers(0, 3, n))
+        qpos = np.sort(rng.integers(0, 3000, n))
+        qpos[n // 2:] += 6000 if b % 2 else 0
+        tpos = np.maximum(qpos + rng.integers(0, 300, 3)[vid]
+                          + rng.integers(-40, 40, n), 1)
+        span = rng.integers(15, 24, n)
+        order = np.lexsort((tpos, vid))
+        vid, tpos, qpos, span = (a[order] for a in (vid, tpos, qpos, span))
+        dup = rng.random(n) < 0.1
+        if b % 4 == 3 and n > 100:
+            dup[n // 2 + 5: n // 2 + 45] = True
+        for i in np.nonzero(dup)[0]:
+            if i:
+                vid[i], tpos[i], qpos[i], span[i] = \
+                    vid[i - 1], tpos[i - 1], qpos[i - 1], span[i - 1]
+        pl[0][b, :n], pl[1][b, :n], pl[3][b, :n] = vid, tpos, qpos
+        pl[2][b, :n] = span
+    return [torch.from_numpy(p) for p in pl] + [torch.from_numpy(n_a)]
+
+
+@pytest.mark.parametrize("W", [1, 31, 32, 33, 256])
+def test_chain_ring_kernel_ties(card, W):
+    A = 512 if W == 256 else 256
+    planes = [t.to(card) for t in tie_planes(np.random.default_rng(W), 12,
+                                             A)]
+    got = lchain_dp_planes(*planes, window=W, tile=A)
+    ref = lchain_dp_tiled_ref(*planes, MDX, MDY, BW, 0.1827, 0.00913,
+                              window=W, tile=A)
+    for a, b in zip(got, ref):
+        assert torch.equal(a, b)
+    assert (ref[1] >= 0).sum() > 10
+
+
 def test_chain_ring_kernel_rejects_wide_window(card):
     planes = [t.to(card) for t in synth_planes(np.random.default_rng(2), 2,
                                                64)]
@@ -314,7 +360,7 @@ def gap_pairs(rng, n, max_len):
     return pairs
 
 
-@pytest.mark.parametrize("wa", [32, 64, 128])
+@pytest.mark.parametrize("wa", [32, 64, 96, 128])
 def test_wfa_banded_kernel_matches_ref(card, wa):
     pairs = gap_pairs(np.random.default_rng(wa), 96, 2048)
     planes = encode_pairs(pairs, card)
@@ -324,6 +370,42 @@ def test_wfa_banded_kernel_matches_ref(card, wa):
     ref = banded_score_ref(*planes, wa=wa)
     assert torch.equal(got, ref)
     assert (got < 1 << 28).any() and (got >= 1 << 28).any()
+
+
+def edge_gap_pairs(rng, wa):
+    """Length skews of wa - 3 .. wa either way (the end cell leaves the
+    band among them), empty sequences, one length 0, diverged copies;
+    an odd count, so the last warp is part full."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+
+    def rnd(n):
+        return rng.choice(acgt, n).tobytes()
+    pairs = [(b"", b""), (b"", b"ACG"), (b"ACGTA", b""), (b"A", b"A"),
+             (b"A", b"C")]
+    for d in (wa - 3, wa - 2, wa - 1, wa):
+        n = int(rng.integers(20, 600))
+        pairs += [(rnd(n + d), rnd(n)), (rnd(n), rnd(n + d))]
+    for _ in range(40):
+        t = rng.choice(acgt, int(rng.integers(30, 2048)))
+        q = t.copy()
+        sub = rng.random(len(q)) < 0.03
+        q[sub] = rng.choice(acgt, int(sub.sum()))
+        p = int(rng.integers(0, len(q) - 5))
+        q = np.concatenate([q[:p], q[p + int(rng.integers(0, 5)):]])
+        pairs.append((t.tobytes(), q.tobytes()))
+    if len(pairs) % 2 == 0:
+        pairs.append((b"ACGT" * 30, b"ACGT"))
+    return pairs
+
+
+@pytest.mark.parametrize("wa", [32, 64, 96, 128])
+def test_wfa_banded_kernel_edges(card, wa):
+    planes = encode_pairs(edge_gap_pairs(np.random.default_rng(wa), wa),
+                          card)
+    got = banded_score_planes(*planes, wa=wa)
+    ref = banded_score_ref(*planes, wa=wa)
+    assert torch.equal(got, ref)
+    assert (ref < 1 << 28).sum() >= 20 and (ref >= 1 << 28).any()
 
 
 def test_wfa_banded_kernel_rejects_odd_band(card):
