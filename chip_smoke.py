@@ -11,25 +11,41 @@ Phases, in order; any failure exits non-zero:
 3. kernels against their plain PyTorch versions on the card, bitwise:
    the sketch kernel at the three buckets' shapes on synthetic reads
    with N runs, tandem repeats and empty lanes; the exact chain kernel
-   (K2) and the chunked-walk chain kernel (K3) on the same anchors from
-   the real collect at each bucket's (B, A, W, T), the batch padded with
-   empty reads to the bucket's width, K3's sure flags equal to K2's;
-   each timed with CUDA events over back-to-back wrapper calls and
-   replayed from a CUDA graph (the device time without the wrapper's
-   host cost), as are K4 and K7 in phases 5 and 6;
+   (K2), the chunked-walk chain kernel (K3) and the backtrack walk
+   kernel (csrc/backtrack.cu, through ops/backtrack.py
+   backtrack_compact, on K2's f and p) on the same anchors from the
+   real collect at each bucket's (B, A, W, T), the batch padded with
+   empty reads to the bucket's width, K3's sure flags equal to K2's; the
+   backtrack once more at the 8 kb shape with a step budget that flags
+   lanes; each timed with CUDA events over back-to-back wrapper calls
+   and replayed from a CUDA graph (the device time without the
+   wrapper's host cost), as are K4 and K7 in phases 5 and 6;
 4. main path at real size: a 5 Mb MHC-class synthetic reference as an
    rGFA bubble graph (its index has well over 1e5 keys, so the hash
    join runs), 1024 reads of 800-1900 bp plus 128 reads of ~15 kb mean
-   (capped at 30 kb) off a haplotype walk; map_files(device="cuda") and
-   map_files(device=None) must write the same GAF bytes, the sketch and
-   K2 kernels must have launched, and at least 80% of eligible reads
-   must stay on the device; then the device run again with
-   MGT_CHAIN_CHUNKED=1: the same GAF bytes and reads on the device, K3
-   launched and K2 not; then once more with the native batch tail
-   reporting a bail for every 40th read of a batch, which re-maps those
-   reads on the exact per-read path (mapping/mapper.py map_frag): the
-   same GAF bytes again.  It logs how many reads of the unforced runs
-   took the per-read path;
+   (capped at 30 kb) off a haplotype walk, through the port's file loop
+   (mapping/mapper.py map_reads / map_files: native reader arenas, the
+   host/device split) in these runs, each held to the GAF bytes of
+   the host-only run of the same file:
+   (i) a front on the card with the split pinned at share 0 (every
+   eligible read to the device, none to the host), run twice (the first
+   pays one-time costs; the second is held and timed): the sketch, K2
+   and backtrack kernels launched, one backtrack launch a device batch,
+   >= 80% of eligible reads on the device; (ii) the same with
+   MGT_CHAIN_CHUNKED=1: the same reads on the device, K3 launched and K2
+   not; (iii) (i) with the native batch tail reporting a bail for every
+   40th read of a batch, which re-maps those reads on the exact per-read
+   path (mapping/mapper.py map_frag), once through the native file loop
+   and once through map_batch (the loop of a file the native reader
+   cannot open); (iv) map_files(device="cuda") with the split as it
+   starts (share 0.35): (a) over 20 arena batches of ~57 reads, then on
+   a file of the same mix with 12.5x the reads (b) at the default -K
+   (one arena batch, as the command line runs) and (c) over 17 arena
+   batches, with that file's device path (share pinned at 0) and host
+   only beside them, printing the share the controller reached, whether
+   it collapsed, its probes and the reads sent to each side; (v)
+   map_files(device=None), host only.  Each run prints its reads/s and
+   stage ms;
 5. batched map step (minigraph_tpu_torch/ops/pipeline.py) at bench.py's
    stage shape (B=512 short reads padded to 2048, acap=512, qcap=384,
    window=32, b_chunk=64, occ_cap=16): make_map_step_v3 with (a) the
@@ -47,7 +63,8 @@ Phases, in order; any failure exits non-zero:
    plain version, bitwise.
 
 After the build it prints ptxas' registers, stack frame and spills of
-the sketch, chunked-chain, ring-chain and banded-score kernels.  Prints the kernels' JSON line,
+the sketch, chunked-chain, ring-chain, banded-score and backtrack
+kernels.  Prints the kernels' JSON line,
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -273,7 +290,7 @@ def check_chain(args, W, T, reps):
         f" ({graph_ms:.4f} ms replayed from a CUDA graph), plain "
         f"{plain:.1f} ms, bound {bms:.4f} ms")
     return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
-            "plain_ms": plain, "bound_ms": bms, "bound_by": by}, got[2]
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by}, got
 
 
 def check_chunked(args, W, T, reps, k2, k2_sure):
@@ -318,13 +335,72 @@ def check_chunked(args, W, T, reps, k2, k2_sure):
             "k3_over_k2_graph": graph_ms / k2["graph_ms"]}
 
 
+def check_backtrack(front, args, k2_out, reps, max_steps=None):
+    """The backtrack kernel (csrc/backtrack.cu, through backtrack_compact)
+    against the plain walk on K2's outputs, bitwise on every output."""
+    from minigraph_tpu_torch.mapping.device_front import UCAP
+    from minigraph_tpu_torch.ops import backtrack as bt
+    f, p, _ = k2_out
+    opt = front.opt
+    bargs = (f, p, args[4], *args[:4])
+    kw = dict(min_cnt=int(opt.min_lc_cnt), min_sc=int(opt.min_lc_score),
+              max_drop=int(opt.bw), ucap=UCAP, max_steps=max_steps)
+    got = bt.backtrack_compact(*bargs, **kw)
+    t0 = time.perf_counter()
+    ref = bt.backtrack_compact_ref(*bargs, **kw)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    keys = ("c_axh", "c_axl", "c_ayh", "c_ayl", "u_sc", "u_cnt", "n_u",
+            "n_v", "bt_unsure", "steps")
+    err = max_abs_err([got[k] for k in keys], [ref[k] for k in keys])
+    B, A = f.shape
+    if err:
+        bad = [k for k in keys if not torch.equal(got[k], ref[k])]
+        raise AssertionError(f"backtrack kernel differs at {(B, A)}: {bad}")
+    n_flag = int(got["bt_unsure"].sum())
+    steps = got["steps"]
+    if max_steps is not None:
+        over = steps >= max_steps
+        if not over.any() or not got["bt_unsure"][over].all():
+            raise AssertionError("the step budget flagged no lane")
+    ms = cuda_time(lambda: bt.backtrack_compact(*bargs, **kw), reps)
+    graph_ms = graph_time(lambda: bt.backtrack_compact(*bargs, **kw), reps)
+    cand, s_idx, r_of, n_z = bt.candidate_order(f, args[4].to(torch.int32),
+                                                kw["min_sc"])
+    walk_args = (f, p, s_idx, r_of, n_z, kw["min_cnt"], kw["min_sc"],
+                 kw["max_drop"], UCAP, max_steps or 8 * A + 16)
+    walk_ms = cuda_time(lambda: bt.walk_cuda(*walk_args), reps)
+    # f, p and four anchor planes in; four compacted planes, u (score and
+    # count) and n_u, n_v, the flag out
+    nbytes = B * A * 4 * 6 + B * A * 4 * 4 + B * UCAP * 4 * 2 + B * 12
+    bms, by = bound(nbytes, 0)
+    log(f"backtrack ({B}, {A}{', max_steps ' + str(max_steps) if max_steps else ''}): "
+        f"bitwise equal, {n_flag}/{B} lanes flagged, {int(got['n_u'].sum())}"
+        f" chains; steps max {int(steps.max())} mean "
+        f"{float(steps.float().mean()):.1f} (budget {max_steps or 8 * A + 16});"
+        f" backtrack_compact {ms:.4f} ms ({graph_ms:.4f} ms replayed from a "
+        f"CUDA graph), walk kernel alone {walk_ms:.4f} ms; plain {plain:.1f}"
+        f" ms, bound {bms:.4f} ms ({by})")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "walk_ms": walk_ms, "plain_ms": plain, "bound_ms": bms,
+            "bound_by": by, "library_ms": None,
+            "max_steps": int(steps.max())}
+
+
 def check_buckets(front, batches, reps):
-    """K2 and K3 on the same collected inputs at each bucket shape."""
+    """K2, K3 and the backtrack kernel on the same collected inputs at
+    each bucket shape; the backtrack once more with a step budget small
+    enough to flag lanes."""
     out = []
     for seqs, pad_len, r in zip(batches, (2048, 8192, 32768), reps):
         args, W, T = chain_inputs(front, seqs, pad_len)
-        k2, k2_sure = check_chain(args, W, T, r)
-        out.append((k2, check_chunked(args, W, T, r, k2, k2_sure)))
+        k2, k2_out = check_chain(args, W, T, r)
+        k3 = check_chunked(args, W, T, r, k2, k2_out[2])
+        kb = check_backtrack(front, args, k2_out, r)
+        if pad_len == 8192:
+            check_backtrack(front, args, k2_out, 2,
+                            max_steps=max(1, kb["max_steps"] // 2))
+        out.append((k2, k3, kb))
     return out
 
 
@@ -513,26 +589,92 @@ def wfa_phase(ref, kernels, reps):
                       "library_ms": None}
 
 
-def forced_bail_run(path, reads, io_, mo, every):
-    """map_files on the card with the native batch tail reporting a bail
-    (status != 0) for every `every`-th read of each batch, so those
-    reads take the exact per-read path (mapping/mapper.py map_frag);
-    returns (GAF text, stats)."""
-    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+def forced_bail_run(gi, mo, reads, every, loop="native"):
+    """device_run with the native batch tail reporting a bail (status !=
+    0) for every `every`-th read of each batch, so those reads take the
+    exact per-read path (mapping/mapper.py map_frag)."""
     from minigraph_tpu_torch.mapping import mapper
     real = mapper.map_batch_native
 
-    def bailing(gi, opt, items, n_threads, host_collect=False):
-        res = real(gi, opt, items, n_threads, host_collect)
+    def bailing(*args, **kw):
+        res = real(*args, **kw)
         return {k: None if k % every == 0 else v for k, v in res.items()}
     mapper.map_batch_native = bailing
     try:
-        buf, st = io.StringIO(), {}
-        mapper.map_files(read_gfa(path), [reads], io_, mo, out=buf,
-                         n_threads=8, device="cuda", stats=st)
+        return device_run(gi, mo, reads, loop)
     finally:
         mapper.map_batch_native = real
+
+
+def device_run(gi, mo, reads, loop="native"):
+    """The port's file loop with a front on the card.  loop="native":
+    the native file loop with the host/device split pinned at share 0
+    (every eligible read to the device), held to have sent no read to
+    the host; loop="batch": the native reader refused, so map_reads maps
+    the file batch by batch through map_batch (the loop of a file the
+    native reader cannot open, e.g. stdin).  Returns (GAF text, stats)."""
+    from minigraph_tpu_torch.mapping import mapper
+    from minigraph_tpu_torch.mapping.device_front import DeviceFront
+    front = DeviceFront(gi, mo, device="cuda")
+    buf, st = io.StringIO(), {}
+    if loop == "native":
+        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        mapper.map_reads(gi, mo, [reads], buf, 8, front, st)
+        # the pin holds only while the host measures no cost
+        if st["n_share_host"] or st["share"] != 0.0:
+            raise AssertionError(f"the pinned split sent "
+                                 f"{st['n_share_host']} reads to the host "
+                                 f"(share {st['share']})")
+        return buf.getvalue(), st
+
+    def refuse(fn):
+        raise OSError(f"cannot open {fn}")
+    real = mapper.NativeSeqReader
+    mapper.NativeSeqReader = refuse
+    try:
+        mapper.map_reads(gi, mo, [reads], buf, 8, front, st)
+    finally:
+        mapper.NativeSeqReader = real
+    if "n_arena" in st:
+        raise AssertionError("the native reader was not refused")
     return buf.getvalue(), st
+
+
+def split_run(fa, gfa, io_, mo, max_bp=None):
+    """map_files(device="cuda") as the command line runs it, the split as
+    it starts (share 0.35), at the default -K or at `max_bp`.  Returns
+    (GAF text, stats)."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.mapping.mapper import map_files
+    mo_k = dataclasses.replace(mo)
+    if max_bp is not None:
+        mo_k.mini_batch_size = max_bp
+    buf, st = io.StringIO(), {}
+    map_files(read_gfa(gfa), [fa], io_, mo_k, out=buf, n_threads=8,
+              device="cuda", stats=st)
+    st["max_bp"] = mo_k.mini_batch_size
+    return buf.getvalue(), st
+
+
+def split_line(name, st):
+    """What the split's controller reached in one run."""
+    return (f"{name} (-K {st['max_bp']}): final share {st['share']:.3f}, "
+            f"collapsed {st['collapsed']}, {st.get('n_probes', 0)} probes, "
+            f"{st['n_share_dev']} reads to the device share, "
+            f"{st['n_share_host']} to the host share, {st['n_device']} kept "
+            f"on the device, {st['n_batches']} device batches, "
+            f"{st['n_arena']} arena batches")
+
+
+def run_line(name, st, n_reads):
+    """reads/s and stage ms of one main-path run."""
+    stages = {k: round(v, 3) for k, v in st.get("stage_ms", {}).items()}
+    stages["tail_host"] = round(st["tail_ms"], 3)
+    return (f"{name}: {n_reads / (st['map_ms'] / 1e3):.1f} reads/s (map "
+            f"{st['map_ms']:.1f} ms); device share {st.get('n_share_dev', 0)}"
+            f" reads, host share {st.get('n_share_host', 0)}, "
+            f"{st.get('n_arena', 0)} arena batches; stage ms (device: CUDA "
+            f"events; tail: host clock) {stages}")
 
 
 def first_diff(a, b):
@@ -685,7 +827,8 @@ def main() -> int:
     if kernels.build_log:
         for line in ptxas_lines(kernels.build_log,
                                 ("sketch_kernel", "chunked_kernel",
-                                 "chain_ring_kernel", "banded_kernel")):
+                                 "chain_ring_kernel", "banded_kernel",
+                                 "backtrack_kernel")):
             log(line)
     else:
         log("ptxas: the kernel library was up to date, no build this run")
@@ -701,8 +844,17 @@ def main() -> int:
     long_ = simulate_reads([hap], 128, seed=45, mean_len=15000,
                            min_len=2100, max_len=30000)
     write_fasta(str(work / "reads.fa"), short + long_)
-    log(f"inputs: 5 Mb graph + {len(short) + len(long_)} reads in "
-        f"{time.perf_counter() - t0:.1f} s")
+    # the split's runs at realistic batch sizes: the same mix, 12.5x the
+    # reads, so that 17 arena batches each hand the device ~2 full 2 kb
+    # bucket batches at the starting share
+    big = (simulate_reads([hap], 12800, seed=50, mean_len=1300,
+                          min_len=800, max_len=1900)
+           + simulate_reads([hap], 1600, seed=51, mean_len=15000,
+                            min_len=2100, max_len=30000))
+    write_fasta(str(work / "reads_big.fa"), big)
+    log(f"inputs: 5 Mb graph + {len(short) + len(long_)} reads, + "
+        f"{len(big)} reads ({sum(len(s) for _, s in big)} bp) for the "
+        f"split in {time.perf_counter() - t0:.1f} s")
 
     # ---- 3. kernels against their plain versions
     rng = np.random.default_rng(7)
@@ -720,7 +872,8 @@ def main() -> int:
     # 2.1-8 kb reads off the same walk checks the kernels at that width
     mid = simulate_reads([hap], 128, seed=46, mean_len=5000, min_len=2100,
                          max_len=8000)
-    (k2, k3), (k2_mid, k3_mid), (k2_long, k3_long) = check_buckets(
+    (k2, k3, kb), (k2_mid, k3_mid, kb_mid), (k2_long, k3_long, kb_long) = \
+        check_buckets(
         front, [[s for _, s in short[:256]],
                 [s for _, s in mid if 2048 < len(s) <= 8192],
                 [s for _, s in long_ if 8192 < len(s) <= 32768]],
@@ -728,84 +881,152 @@ def main() -> int:
     hash_tables = front.ji      # the cuckoo tables, reused by phase 5
     del front, g
 
-    # ---- 4. main path
+    # ---- 4. main path: (i) every eligible read on the device with K2,
+    # (ii) the same with K3, (iii) bails forced on every 40th read, (iv)
+    # the split as map_files starts it, over >= 16 arena batches, (v)
+    # host only: the reference bytes
+    reads_fa = str(work / "reads.fa")
     n_reads = len(short) + len(long_)
-    kernels.reset_launches()
-    buf, st = io.StringIO(), {}
-    map_files(read_gfa(str(work / "mhc5m.gfa")), [str(work / "reads.fa")],
-              io_, mo, out=buf, n_threads=8, device="cuda", stats=st)
-    launches = dict(kernels.launches)
-    dev_gaf = buf.getvalue()
     buf, st_host = io.StringIO(), {}
-    map_files(read_gfa(str(work / "mhc5m.gfa")), [str(work / "reads.fa")],
-              io_, mo, out=buf, n_threads=8, device=None, stats=st_host)
+    map_files(read_gfa(str(work / "mhc5m.gfa")), [reads_fa], io_, mo,
+              out=buf, n_threads=8, device=None, stats=st_host)
     host_gaf = buf.getvalue()
+    n_lines = host_gaf.count("\n")
+
+    # the first run of the file loop on the card pays one-time costs
+    # (allocations, first calls); the second is the one held and timed
+    first_gaf, st_first = device_run(gi, mo, reads_fa)
+    kernels.reset_launches()
+    dev_gaf, st = device_run(gi, mo, reads_fa)
+    launches = dict(kernels.launches)
+    if first_gaf != host_gaf:
+        raise AssertionError(f"GAF of the first device run differs from "
+                             f"the host run at line "
+                             f"{first_diff(first_gaf, host_gaf)}")
     if dev_gaf != host_gaf:
         raise AssertionError(f"GAF differs from the host run at line "
                              f"{first_diff(dev_gaf, host_gaf)}")
-    n_lines = dev_gaf.count("\n")
-    log(f"main path: GAF bytes equal to the host-only run "
-        f"({n_lines} lines, {len(dev_gaf)} bytes)")
-    for name in ("sketch", "chain_exact"):
+    log(f"main path (i), K2, share pinned at 0: GAF bytes equal to the "
+        f"host-only run ({n_lines} lines, {len(dev_gaf)} bytes)")
+    for name in ("sketch", "chain_exact", "backtrack"):
         if launches[name] <= 0:
             raise AssertionError(f"{name} kernel not launched on the main path")
+    if launches["backtrack"] != st["n_batches"]:
+        raise AssertionError(f"{launches['backtrack']} backtrack launches "
+                             f"for {st['n_batches']} device batches")
     tot = st["n_device"] + st["n_fallback"] + st["n_chain_unsure"]
     share = st["n_device"] / max(1, tot)
     log(f"front: {st['n_device']}/{tot} eligible reads on the device "
         f"({st['n_fallback']} flagged, {st['n_chain_unsure']} chain "
-        f"unsure, {st['n_flat_ovf']} flat refetches); launches {launches}")
+        f"unsure, {st['n_flat_ovf']} flat refetches, {st['n_batches']} "
+        f"device batches); launches {launches}")
     if share < 0.8:
         raise AssertionError(f"only {share:.1%} of eligible reads on device")
     log(f"per-read path (native tail bailed): {st['n_perread']} reads of "
         f"the device run, {st_host['n_perread']} of the host-only run")
-    stages = {k: round(v, 3) for k, v in st["stage_ms"].items()}
-    stages["tail_host"] = round(st["tail_ms"], 3)
-    log(f"reads/s: device path {n_reads / (st['map_ms'] / 1e3):.1f} "
-        f"(map {st['map_ms']:.0f} ms, index+tables {st['index_ms']:.0f} ms)"
-        f", host-only path {n_reads / (st_host['map_ms'] / 1e3):.1f} "
-        f"(map {st_host['map_ms']:.0f} ms), 8 host threads")
-    log(f"stage ms (device: CUDA events; tail: host clock): {stages}")
-    for name, a, b, c in (("8 kb", k1_mid, k2_mid, k3_mid),
-                          ("32 kb", k1_long, k2_long, k3_long)):
+    log(run_line("run (i) device path, K2, first run", st_first, n_reads))
+    log(run_line("run (i) device path, K2", st, n_reads))
+    log(f"backtrack stage {st['stage_ms']['backtrack']:.3f} ms (candidate "
+        f"sort, walk kernel, compaction; {st['n_batches']} batches)")
+    for name, a, b, c, d in (("8 kb", k1_mid, k2_mid, k3_mid, kb_mid),
+                             ("32 kb", k1_long, k2_long, k3_long, kb_long)):
         log(f"{name} bucket: sketch {json.dumps(a)}; chain {json.dumps(b)};"
-            f" chunked chain {json.dumps(c)}")
+            f" chunked chain {json.dumps(c)}; backtrack {json.dumps(d)}")
 
-    # ---- 4, again: the main path with the chunked-walk chain (K3)
+    # (ii) the chunked-walk chain (K3), read by DeviceFront.__init__
     os.environ["MGT_CHAIN_CHUNKED"] = "1"
     try:
         kernels.reset_launches()
-        buf, st_c = io.StringIO(), {}
-        map_files(read_gfa(str(work / "mhc5m.gfa")),
-                  [str(work / "reads.fa")], io_, mo, out=buf, n_threads=8,
-                  device="cuda", stats=st_c)
+        gaf_c, st_c = device_run(gi, mo, reads_fa)
         launches_c = dict(kernels.launches)
     finally:
         del os.environ["MGT_CHAIN_CHUNKED"]
-    if buf.getvalue() != host_gaf:
+    if gaf_c != host_gaf:
         raise AssertionError(f"chunked-chain GAF differs from the host run "
-                             f"at line {first_diff(buf.getvalue(), host_gaf)}")
+                             f"at line {first_diff(gaf_c, host_gaf)}")
     if launches_c["chain_chunked"] <= 0 or launches_c["chain_exact"]:
         raise AssertionError(f"chunked main path launches: {launches_c}")
+    if launches_c["backtrack"] != st_c["n_batches"]:
+        raise AssertionError("chunked main path: backtrack launches "
+                             f"{launches_c['backtrack']} for "
+                             f"{st_c['n_batches']} batches")
     if st_c["n_device"] != st["n_device"]:
         raise AssertionError(f"chunked main path kept {st_c['n_device']} "
                              f"reads on the device, K2's {st['n_device']}")
-    log(f"main path, MGT_CHAIN_CHUNKED=1: GAF bytes equal to the host-only "
-        f"run, {st_c['n_device']}/{tot} reads on the device; chain stage "
-        f"{st_c['stage_ms']['chain']:.3f} ms against K2's "
-        f"{st['stage_ms']['chain']:.3f} ms; map {st_c['map_ms']:.0f} ms; "
-        f"launches {launches_c}")
+    log(f"main path (ii), MGT_CHAIN_CHUNKED=1: GAF bytes equal to the "
+        f"host-only run, {st_c['n_device']}/{tot} reads on the device; "
+        f"chain stage {st_c['stage_ms']['chain']:.3f} ms against K2's "
+        f"{st['stage_ms']['chain']:.3f} ms; launches {launches_c}")
+    log(run_line("run (ii) device path, K3", st_c, n_reads))
 
-    # ---- 4, once more: bails forced for every 40th read of a batch
-    forced_gaf, st_f = forced_bail_run(str(work / "mhc5m.gfa"),
-                                       str(work / "reads.fa"), io_, mo, 40)
-    if forced_gaf != host_gaf:
-        raise AssertionError(f"GAF with forced per-read fallbacks differs "
-                             f"at line {first_diff(forced_gaf, host_gaf)}")
-    if st_f["n_perread"] <= 0:
-        raise AssertionError("the forced run took no read off the batch")
-    log(f"main path with forced bails: {st_f['n_perread']} reads re-mapped "
-        f"on the per-read path, GAF bytes equal to the unforced run; map "
-        f"{st_f['map_ms']:.0f} ms")
+    # (iii) bails forced for every 40th read of a batch, through the
+    # native file loop and through map_batch
+    for loop in ("native", "batch"):
+        kernels.reset_launches()
+        forced_gaf, st_f = forced_bail_run(gi, mo, reads_fa, 40, loop)
+        if forced_gaf != host_gaf:
+            raise AssertionError(
+                f"GAF with forced per-read fallbacks ({loop} loop) differs "
+                f"at line {first_diff(forced_gaf, host_gaf)}")
+        if st_f["n_perread"] <= 0:
+            raise AssertionError("the forced run took no read off the batch")
+        if kernels.launches["backtrack"] != st_f["n_batches"]:
+            raise AssertionError(f"forced run ({loop} loop): launches "
+                                 f"{dict(kernels.launches)}")
+        log(f"main path (iii) with forced bails, {loop} loop: "
+            f"{st_f['n_perread']} reads re-mapped on the per-read path, "
+            f"{st_f['n_device']} kept on the device, GAF bytes equal to the "
+            f"host-only run")
+        log(run_line(f"run (iii) forced bails, {loop} loop", st_f, n_reads))
+
+    # (iv) map_files(device="cuda"), the split as it starts (share 0.35):
+    # (a) arena batches of ~1/20 of the small file's bases (~57 reads, far
+    # below the buckets' widths); on the large file (b) the default -K
+    # (one arena batch, the command line's run) and (c) a -K of 1/16 of
+    # its bases (~900 reads a batch); the large file's host-only run and
+    # its device path (share pinned at 0) beside them
+    gfa = str(work / "mhc5m.gfa")
+    kernels.reset_launches()
+    gaf_s, st_s = split_run(reads_fa, gfa, io_, mo,
+                            sum(len(s) for _, s in short + long_) // 20)
+    if gaf_s != host_gaf:
+        raise AssertionError(f"split GAF differs from the host run at line "
+                             f"{first_diff(gaf_s, host_gaf)}")
+    if st_s["n_arena"] < 16:
+        raise AssertionError(f"only {st_s['n_arena']} arena batches")
+    log("main path (iv a), GAF bytes equal to the host-only run: "
+        + split_line("split, small file", st_s)
+        + f"; launches {dict(kernels.launches)}")
+    log(run_line("run (iv a) split, small batches", st_s, n_reads))
+    log(run_line("run (v) host only", st_host, n_reads) + ", 8 host threads")
+
+    big_fa, n_big = str(work / "reads_big.fa"), len(big)
+    buf, st_hb = io.StringIO(), {}
+    map_files(read_gfa(gfa), [big_fa], io_, mo, out=buf, n_threads=8,
+              device=None, stats=st_hb)
+    big_gaf = buf.getvalue()
+    gaf_pb, st_pb = device_run(gi, mo, big_fa)
+    big_runs = [("(iv b) split, default -K", split_run(big_fa, gfa, io_, mo)),
+                ("(iv c) split, -K 1/17", split_run(
+                    big_fa, gfa, io_, mo,
+                    sum(len(s) for _, s in big) // 17))]
+    for name, (gaf_b, st_b) in [("(iv p) device path, large file",
+                                 (gaf_pb, st_pb))] + big_runs:
+        if gaf_b != big_gaf:
+            raise AssertionError(f"{name}: GAF differs from the host run "
+                                 f"at line {first_diff(gaf_b, big_gaf)}")
+    if big_runs[1][1][1]["n_arena"] < 16:
+        raise AssertionError(f"only {big_runs[1][1][1]['n_arena']} arena "
+                             f"batches at -K 1/17")
+    log(f"large file: GAF bytes equal to its host-only run in every run "
+        f"({big_gaf.count(chr(10))} lines, {len(big_gaf)} bytes)")
+    log(run_line("run (iv p) device path, share pinned at 0, large file",
+                 st_pb, n_big))
+    for name, (_, st_b) in big_runs:
+        log(split_line(f"main path {name}", st_b))
+        log(run_line(f"run {name}", st_b, n_big))
+    log(run_line("run (v) host only, large file", st_hb, n_big)
+        + ", 8 host threads")
 
     # ---- 5. batched map step
     flat_ref = make_reference(400_000, seed=47)
@@ -850,6 +1071,11 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/wfa_banded.cu",
              replaces="minigraph_tpu/ops/wfa_pallas.py:52",
              launches=wfa_launches, **k7),
+        dict(name="backtrack", route="cuda",
+             source="minigraph_tpu_torch/csrc/backtrack.cu",
+             replaces="minigraph_tpu/ops/backtrack_jax.py:65",
+             launches=launches["backtrack"],
+             **{k: v for k, v in kb.items() if k != "max_steps"}),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -53,6 +53,8 @@ KERNELS = {
     "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiippp"),
     "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiippp"),
     "wfa_banded": ("wfa_banded.cu", "mgt_cuda_wfa_banded", "ppppiiiiiiiip"),
+    "backtrack": ("backtrack.cu", "mgt_cuda_backtrack",
+                  "pppppiiiiiiipppppppp"),
 }
 
 launches = {name: 0 for name in KERNELS}
@@ -60,6 +62,11 @@ launches = {name: 0 for name in KERNELS}
 _lib = None
 # what the last build printed (nvcc -Xptxas -v: registers, spills)
 build_log = ""
+
+
+def loaded() -> bool:
+    """Whether the kernel library is built and loaded in this process."""
+    return _lib is not None
 
 
 def reset_launches() -> None:

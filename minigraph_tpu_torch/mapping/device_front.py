@@ -9,7 +9,8 @@ bucket one step runs on the device:
   3. the exact-or-flag chain DP (ops/chain_exact.py; CUDA kernel), or
      with MGT_CHAIN_CHUNKED set its chunked-walk form
      (ops/chain_chunked.py; CUDA kernel) where the bucket allows it;
-  4. the exact backtrack and compaction (ops/backtrack.py);
+  4. the exact backtrack and compaction (ops/backtrack.py; its walk is
+     a CUDA kernel);
   5. packing into one buffer, fetched with a single copy to the host.
 
 The host then hands each read's compacted chains to the native batch
@@ -32,6 +33,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import kernels
 from ..index.midx import MinimizerIndex
 from ..options import (MG_M_HEAP_SORT, MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE,
                        MG_M_SR, MapOptions)
@@ -164,6 +166,13 @@ class DeviceFront:
         self.n_fallback = 0
         self.n_chain_unsure = 0
         self.n_flat_ovf = 0
+        self.n_batches = 0    # device steps run (one a bucket batch)
+        # True after a submit that built the kernel library or ran a
+        # bucket for the first time: the split controller of the file
+        # loop (mapping/mapper.py) does not take that cost as the
+        # device's steady cost
+        self.last_submit_cold = False
+        self._warm = set()
         # the device chain applies when the chain parameters are
         # read-independent (map-algo.c:377-390): no sr/splice/rmq, no
         # frag-length-dependent ref gap; otherwise every read maps on
@@ -364,9 +373,11 @@ class DeviceFront:
         return True
 
     def submit(self, seqs: List[str]):
-        """Run the device stages for a list of reads.  Launches are
-        asynchronous on the card; gather() waits for the results.
-        Returns an opaque handle for gather()/gather_flat()."""
+        """Run the device stages for a list of reads (str, bytes or
+        uint8 arrays).  Launches are asynchronous on the card; gather()
+        waits for the results.  Returns an opaque handle for
+        gather()/gather_flat()."""
+        cold = self.device.type == "cuda" and not kernels.loaded()
         by_bucket: Dict[int, List[int]] = {}
         for i, s in enumerate(seqs):
             for pad_len, bsz in self.buckets:
@@ -384,7 +395,12 @@ class DeviceFront:
                 codes = torch.from_numpy(codes).to(self.device)
                 lens = torch.from_numpy(lens).to(self.device)
                 buf, layout, full = self._step(codes, lens, pad_len, bsz)
+                self.n_batches += 1
                 pending.append((chunk, buf, layout, full))
+            if pad_len not in self._warm:
+                self._warm.add(pad_len)
+                cold = True
+        self.last_submit_cold = cold
         return (len(seqs), pending)
 
     def _fetch(self, entry):

@@ -2,15 +2,23 @@
 map-algo.c:340-502) and the file-level loop (mg_map_files,
 gmap.c:163-211).
 
-`map_files` indexes the graph once, then maps each query file batch by
-batch: the device front runs the seed and chain stages for the eligible
-reads, one native tail call turns their compacted chains into GAF text,
-one more maps the flagged and ineligible reads through the native host
-path, and the text is written in input order.  A read whose native
-tail bails (status != 0) is mapped again from its sequence on the
-exact per-read path (`map_frag`) and written with `write_gaf`.  With
-device=None every read takes the native host path; that run is the
-byte reference the device run is held against.
+`map_files` indexes the graph once, then maps each query file.  A file
+the native reader opens goes through `_map_file_native`, the JAX
+package's all-native loop: C reader arenas with a one-batch read-ahead
+thread, and, with a device front, the adaptive host/device split.  In
+the open split each arena batch sends a share of its eligible reads to
+the device front and maps the rest in one native host call (host
+collect), then finishes the previous batch's device share (its chains
+through the native tail), so the device works on batch k while the host
+finishes batch k-1.  The host share follows the measured per-read costs
+so that both finish together; when the device does not pay, the split
+collapses to the host with a device probe every few batches.  A file
+the native reader cannot open (stdin) goes through `map_batch`, a plain
+batch loop.  A read whose native tail bails (status != 0) is mapped
+again from its sequence on the exact per-read path (`map_frag`) and
+written with `write_gaf`.  With device=None every read takes the native
+host path; that run is the byte reference the device runs are held
+against, whatever share the controller picks.
 """
 from __future__ import annotations
 
@@ -27,7 +35,7 @@ from ..index.midx import build_index
 from ..index.midx import MinimizerIndex
 from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
                        MG_MAX_SEG, IndexOptions, MapOptions)
-from ..seqio.bseq import BSeqFile
+from ..seqio.bseq import BSeqFile, NativeSeqReader
 from ..seqio.gaf import write_gaf
 from ..utils.hashes import kh_hash_str, kh_hash_uint32
 from ..utils.ksort import radix_argsort
@@ -267,29 +275,382 @@ def map_batch(gi, opt: MapOptions, recs, n_threads: int, front=None,
     return texts
 
 
-def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
-              opt0: MapOptions, out=sys.stdout, n_threads: int = 1,
-              device="cuda", stats: Optional[dict] = None) -> int:
-    """Index once, then map each query file (mg_map_files).
+def _ema(prev, x, alpha=0.4):
+    """Exponential moving average with None start."""
+    return x if prev is None else prev + alpha * (x - prev)
 
-    device: "cuda" (default) runs the seed and chain stages on the card,
-    "cpu" runs the same stages' plain versions on the CPU, None maps
-    every read on the native host path.  The GAF bytes are the same in
-    all three cases: reads the device cannot reproduce exactly are
-    flagged and take the host path.  `stats`, when given, receives the
-    index and mapping wall times, the native tail's host time, and the
-    front's counters and per-stage device times (all in ms)."""
-    dev = resolve_device(device)
-    opt = copy.copy(opt0)
-    _check_options(opt)
+
+def _probe_interval(split):
+    """Batches between device probes while the host owns the work.
+
+    A probe maps ~a quarter batch through the device path, costing
+    ~(n/4)*t_dev against interval*n*t_host of host work; sizing the
+    interval to ~5x the cost ratio caps probe overhead at ~5%
+    regardless of workload."""
+    td, th = split.get("t_dev"), split.get("t_host")
+    if not td or not th:
+        return 8
+    return max(8, min(256, int(5.0 * td / th)))
+
+
+def _count(stats, key, n):
+    if stats is not None:
+        stats[key] = stats.get(key, 0) + n
+
+
+def _timed_native(stats, *args, **kw):
+    """map_batch_native, its host time added to stats["tail_ms"]."""
     t0 = time.perf_counter()
-    gi = build_index(g, ipt.k, ipt.w, opt)
-    front = None
-    if dev is not None:
-        from .device_front import DeviceFront
-        front = DeviceFront(gi, opt, device=dev)
-    t1 = time.perf_counter()
+    res = map_batch_native(*args, **kw)
+    _count(stats, "tail_ms", (time.perf_counter() - t0) * 1e3)
+    return res
+
+
+def _map_host_share(gi, opt, n_threads, split, stats, blob):
+    """The host share of an arena batch (every read not in the blob's
+    skip list) in one native call; with a split, its per-read cost
+    updates the host estimates t_host and t_host_cpu."""
+    n, skipw = blob[0], blob[5]
+    n_host = int(n - len(skipw))
+    _count(stats, "n_share_host", n_host)
+    if n_host == 0:
+        return {}
+    # with n_threads > 1 the workers are other threads: the summed
+    # process CPU time is the single-thread cost the estimates compare
+    c0 = time.thread_time() if n_threads == 1 else time.process_time()
+    t0 = time.perf_counter()
+    res = _timed_native(stats, gi, opt, None, n_threads,
+                        blob=blob[:5] + (skipw if len(skipw) else None,))
+    if split is not None:
+        cpu = (time.thread_time() - c0) if n_threads == 1 \
+            else (time.process_time() - c0)
+        wall = time.perf_counter() - t0
+        split["t_host"] = _ema(
+            split["t_host"],
+            (wall if n_threads == 1 else max(wall, cpu)) / n_host)
+        split["t_host_cpu"] = _ema(split.get("t_host_cpu"), cpu / n_host)
+    return res
+
+
+def _open_split_submit(gi, opt, front, split, n_threads, n, sq_addr,
+                       sq_off, nm_addr, nm_off, qlen, bad, stats):
+    """Phase 1 of the open host/device split for one arena batch:
+    submit the device share (asynchronous on the card) and map the host
+    share in one native call on the calling thread (the call releases
+    the GIL).  split["share"] is the host's fraction of the eligible
+    reads.  Returns the in-flight state for _open_split_finish; the
+    caller finishes batch k-1 only after submitting batch k, so the
+    device works on batch k while the host runs k-1's device-share
+    tails."""
+    import ctypes as ct
+
+    elig = [k for k in range(n) if not bad[k]
+            and front.eligible(opt, 1, int(qlen[k]))]
+    n_steal = int(len(elig) * split["share"])
+    cand = elig[n_steal:]
+    sub_wall = 0.0
+    handle = None
+    cold = False
+    if cand:
+        total = int(sq_off[-1])
+        abuf = np.frombuffer((ct.c_char * total).from_address(sq_addr),
+                             dtype=np.uint8)
+        t0 = time.perf_counter()
+        handle = front.submit(
+            [abuf[int(sq_off[k]): int(sq_off[k + 1])] for k in cand])
+        sub_wall = time.perf_counter() - t0
+        cold = front.last_submit_cold
+    # host share: everything not sent to the device
+    host_skip = np.asarray(bad).copy()
+    host_skip[cand] = True
+    skipw = np.nonzero(host_skip)[0]
+    _count(stats, "n_share_dev", len(cand))
+    res = _map_host_share(gi, opt, n_threads, split, stats,
+                          (n, sq_addr, sq_off, nm_addr, nm_off, skipw))
+    return {"n": n, "sq_addr": sq_addr, "sq_off": sq_off,
+            "nm_addr": nm_addr, "nm_off": nm_off, "bad": bad,
+            "cand": cand, "handle": handle, "res": res,
+            "sub_wall": sub_wall, "cold": cold}
+
+
+def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
+    """Phase 2: gather the device share, map it through the native tail
+    (the front's chains where it delivered them, the in-worker collect
+    where it flagged a read), update the share controller, return the
+    merged results."""
+    n, cand = st["n"], st["cand"]
+    res = st["res"]
+    if st["handle"] is not None:
+        t0 = time.perf_counter()
+        # batch arrays (gather_flat): the pointer tables fill with
+        # vectorized numpy, no per-read Python
+        flat, extra = front.gather_flat(st["handle"])
+        cand_arr = np.asarray(cand)
+        fr_flat = [(cand_arr[sel], fb) for sel, fb in flat]
+        fr_map = {cand[i]: fr for i, fr in extra.items() if fr is not None}
+        # every candidate runs here: a read the front flagged (no
+        # chains) runs the in-worker collect, never the per-read path
+        dev_skip = np.ones(n, dtype=bool)
+        dev_skip[cand_arr] = False
+        dev_skip |= np.asarray(st["bad"])
+        dskipw = np.nonzero(dev_skip)[0]
+        dres = _timed_native(
+            stats, gi, opt, None, n_threads,
+            blob=(n, st["sq_addr"], st["sq_off"], st["nm_addr"],
+                  st["nm_off"], dskipw if len(dskipw) else None),
+            fr_map=fr_map, fr_flat=fr_flat)
+        for k in cand:
+            res[k] = dres.get(k)
+        if not st["cold"]:      # a build or first run is not the steady cost
+            split["t_dev"] = _ema(
+                split["t_dev"],
+                (st["sub_wall"] + time.perf_counter() - t0) / len(cand))
+    # ---- controller: share balance + collapse test
+    now = time.perf_counter()
+    t_last = split.get("t_last")
+    split["t_last"] = now
+    if t_last is not None and n > 0 and split["share"] < 1.0:
+        cyc = now - t_last
+        if cyc / n < 0.05:      # not a build cycle
+            split["rate_mix"] = _ema(split.get("rate_mix"), n / cyc)
+            split["nb_mix"] = split.get("nb_mix", 0) + 1
+    if split["t_dev"] and split["t_host"]:
+        tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
+        share = 1.0 if tgt > 0.95 else min(0.9, max(0.0, tgt))
+        if tgt > 0.95:
+            split["hi_tgt"] = split.get("hi_tgt", 0) + 1
+        else:
+            split["hi_tgt"] = 0
+        if split.get("hi_tgt", 0) >= 2:
+            split["collapsed"] = True
+            share = 1.0
+        elif (share < 1.0 and split.get("rate_mix")
+              and split.get("nb_mix", 0) >= 3
+              and split.get("t_host_cpu")
+              and 1.0 / split["t_host_cpu"] > 1.08 * split["rate_mix"]):
+            split["collapsed"] = True
+            share = 1.0
+        split["share"] = share
+    return res
+
+
+def _arena_batches(rdr, max_bp):
+    """One-batch read-ahead over the native reader arenas.
+
+    The C reader keeps three arena sets, so a prefetch thread can decode
+    batch k+1 while batch k maps and batch k-1 finishes.  The semaphore
+    holds the prefetcher one batch ahead, never two: reading k+2 would
+    recycle batch k-1's arena under the consumer."""
+    import queue
+    import threading
+
+    tokens = threading.Semaphore(2)
+    q = queue.Queue()
+    stop = []
+
+    def worker():
+        while True:
+            tokens.acquire()
+            if stop:
+                return
+            try:
+                a = rdr.read_batch_arena(max_bp)
+            except Exception as e:          # re-raised on the consumer
+                q.put(("err", e))
+                return
+            q.put(("ok", a))
+            if a is None:
+                return
+
+    th = threading.Thread(target=worker, daemon=True)
+    th.start()
+    try:
+        while True:
+            kind, a = q.get()
+            if kind == "err":
+                raise a
+            if a is None:
+                return
+            yield a
+            tokens.release()
+    finally:
+        stop.append(True)
+        tokens.release()
+        th.join()
+
+
+def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
+                     stats=None):
+    """All-native single-file loop: C reader arenas -> native batch tail
+    -> GAF text; Python touches only reads that take the per-read path
+    (engine bails, zero-length, over max_qlen).
+
+    With a device front (front and split given) the loop runs the open
+    split until the controller collapses it; collapsed, it maps every
+    read on the host and every _probe_interval-th arena batch probes a
+    quarter batch through the device (submitted before the host call, so
+    the device runs while the host maps) to keep t_dev fresh; two probes
+    in a row with a finish-together target <= 0.45 reopen the split."""
+    import ctypes as ct
+
+    def _emit_batch(res, n, rec, bad):
+        """Write a batch's results in read order; a None entry (a
+        native bail, or a read the native path does not take) is mapped
+        on the exact per-read path."""
+        n_perread = 0
+        for k in range(n):
+            txt = res.get(k)
+            if txt is None:
+                name, seq = rec(k)
+                gcs = map_frag(gi, [len(seq)], [seq], opt, name,
+                               fast_emit=True)
+                txt = write_gaf(gi.g, gcs, 1, [len(seq)], name, opt.flag)
+                n_perread += not bad[k]
+            if txt:
+                out.write(txt)
+        _count(stats, "n_perread", n_perread)
+
+    pending = None      # in-flight split batch (the device busy on it)
+
+    def _flush_pending():
+        nonlocal pending
+        if pending is None:
+            return
+        st, rec_p = pending
+        pending = None
+        res_p = _open_split_finish(gi, opt, front, split, n_threads, st,
+                                   stats)
+        _emit_batch(res_p, st["n"], rec_p, st["bad"])
+
+    for n, sq_addr, sq_off, nm_addr, nm_off in _arena_batches(
+            rdr, opt.mini_batch_size):
+        _count(stats, "n_arena", 1)
+        qlen = sq_off[1:] - sq_off[:-1]
+        bad = qlen <= 0
+        if opt.max_qlen > 0:
+            bad = bad | (qlen > opt.max_qlen)
+
+        # bind this batch's arena: a pending batch's rec is called one
+        # iteration later, when the loop has moved to the next arena
+        def rec(k, nm_addr=nm_addr, nm_off=nm_off, sq_addr=sq_addr,
+                sq_off=sq_off):
+            name = ct.string_at(
+                nm_addr + int(nm_off[k]),
+                int(nm_off[k + 1] - nm_off[k])).decode("latin-1")
+            seq = ct.string_at(
+                sq_addr + int(sq_off[k]),
+                int(sq_off[k + 1] - sq_off[k])).decode("latin-1")
+            return name, seq
+
+        if front is not None and not split.get("collapsed"):
+            # open split: submit batch k's device share and map its host
+            # share, then finish batch k-1 (its fetch has had a host
+            # batch to drain); emission stays in batch order
+            st = _open_split_submit(gi, opt, front, split, n_threads, n,
+                                    sq_addr, sq_off, nm_addr, nm_off, qlen,
+                                    bad, stats)
+            _flush_pending()
+            pending = (st, rec)
+            continue
+        _flush_pending()
+
+        skip = bad
+        handle = cand = None
+        sub_wall = 0.0
+        probe_cold = False
+        if front is not None:
+            split["nb"] = split.get("nb", 0) + 1
+            if split["nb"] % _probe_interval(split) == 0:
+                cand = [k for k in range(n) if not bad[k]
+                        and front.eligible(opt, 1, int(qlen[k]))]
+                cand = cand[:max(8, n // 4)]
+                if cand:
+                    t_sub0 = time.perf_counter()
+                    handle = front.submit([rec(k)[1] for k in cand])
+                    sub_wall = time.perf_counter() - t_sub0
+                    probe_cold = front.last_submit_cold
+                    skip = skip.copy()
+                    skip[cand] = True
+                    _count(stats, "n_probes", 1)
+                    _count(stats, "n_share_dev", len(cand))
+        res = _map_host_share(gi, opt, n_threads, split, stats,
+                              (n, sq_addr, sq_off, nm_addr, nm_off,
+                               np.nonzero(skip)[0]))
+        if handle is not None:
+            t0 = time.perf_counter()
+            fr_map = {k: fr for k, fr in zip(cand, front.gather(handle))
+                      if fr is not None}
+            # the probe's reads through the native tail: the front's
+            # chains where it delivered them, the in-worker collect where
+            # it flagged a read
+            pskip = np.ones(n, dtype=bool)
+            pskip[cand] = False
+            ptxt = _timed_native(stats, gi, opt, None, n_threads,
+                                 blob=(n, sq_addr, sq_off, nm_addr, nm_off,
+                                       np.nonzero(pskip)[0]),
+                                 fr_map=fr_map)
+            if fr_map and not probe_cold:
+                split["t_dev"] = _ema(
+                    split["t_dev"],
+                    (sub_wall + time.perf_counter() - t0) / len(cand))
+                if split["t_host"]:
+                    tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
+                    # hysteresis: one probe biased low (the device ran
+                    # during the host call) must not reopen the split
+                    if tgt <= 0.45:
+                        split["reopen"] = split.get("reopen", 0) + 1
+                        if split["reopen"] >= 2:
+                            split["collapsed"] = False
+                            split["rate_mix"] = None
+                            split["nb_mix"] = 0
+                            split["reopen"] = 0
+                    else:
+                        split["reopen"] = 0
+            for k in cand:
+                res[k] = ptxt.get(k)
+        _emit_batch(res, n, rec, bad)
+    _flush_pending()
+
+
+def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
+              out=sys.stdout, n_threads: int = 1, front=None,
+              stats: Optional[dict] = None) -> None:
+    """Map each query file against an index (the loop of mg_map_files).
+
+    front: a DeviceFront on `gi`, or None to map every read on the host.
+    The split's learned state lives on the front as front._split_state
+    and carries over from file to file; a caller may set it before the
+    first file, e.g. {"share": 0.0, "t_host": None, "t_dev": None} to
+    send every eligible read to the device.  That pin holds only while
+    every read is eligible: the host measures no cost while it maps no
+    eligible read, and the share stays until both costs have been
+    measured; a pinned caller checks stats["n_share_host"] == 0.  `stats`, when given, receives the mapping wall
+    time (map_ms), the native tail's host time (tail_ms), the reads
+    re-mapped on the per-read path (n_perread), the arena batches
+    (n_arena), the reads sent to the device and host shares
+    (n_share_dev, n_share_host), the device probes (n_probes), and with
+    a front the final share, collapsed, and the front's counters and
+    per-stage device times (ms)."""
+    _check_options(opt)
+    split = None
+    if front is not None:
+        split = getattr(front, "_split_state", None)
+        if split is None:
+            split = {"share": 0.35, "t_host": None, "t_dev": None}
+            front._split_state = split
+    t0 = time.perf_counter()
     for fn in fns:
+        try:
+            rdr = NativeSeqReader(fn)
+        except OSError:
+            rdr = None
+        if rdr is not None:
+            try:
+                _map_file_native(gi, opt, rdr, out, n_threads, front,
+                                 split, stats)
+            finally:
+                rdr.close()
+            continue
         fp = BSeqFile(fn)
         try:
             while True:
@@ -301,8 +662,7 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
         finally:
             fp.close()
     if stats is not None:
-        stats.update(index_ms=(t1 - t0) * 1e3,
-                     map_ms=(time.perf_counter() - t1) * 1e3)
+        stats["map_ms"] = (time.perf_counter() - t0) * 1e3
     if front is not None:
         front.log_stats()
         if stats is not None:
@@ -310,5 +670,34 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
                          n_fallback=front.n_fallback,
                          n_chain_unsure=front.n_chain_unsure,
                          n_flat_ovf=front.n_flat_ovf,
+                         n_batches=front.n_batches,
+                         share=split["share"],
+                         collapsed=bool(split.get("collapsed")),
                          stage_ms=dict(front.timer.ms))
+
+
+def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
+              opt0: MapOptions, out=sys.stdout, n_threads: int = 1,
+              device="cuda", stats: Optional[dict] = None) -> int:
+    """Index once, then map each query file (mg_map_files).
+
+    device: "cuda" (default) runs the seed and chain stages of the
+    device share on the card, "cpu" runs the same stages' plain versions
+    on the CPU, None maps every read on the native host path.  The GAF
+    bytes are the same in all three cases: reads the device cannot
+    reproduce exactly are flagged and take the host path.  `stats`,
+    when given, receives the index wall time (index_ms) and what
+    map_reads reports."""
+    dev = resolve_device(device)
+    opt = copy.copy(opt0)
+    _check_options(opt)
+    t0 = time.perf_counter()
+    gi = build_index(g, ipt.k, ipt.w, opt)
+    front = None
+    if dev is not None:
+        from .device_front import DeviceFront
+        front = DeviceFront(gi, opt, device=dev)
+    if stats is not None:
+        stats["index_ms"] = (time.perf_counter() - t0) * 1e3
+    map_reads(gi, opt, fns, out, n_threads, front, stats)
     return 0

@@ -1,13 +1,15 @@
 """The native batch tail: anchors or compacted chains -> GAF text.
 
 Port of the JAX package's mapping/mapper.py `_map_batch_native` (items
-mode) and the graph/index context helpers it calls.  One call maps a
-batch of reads in native/mgt_batch.c: a work-stealing pthread loop over
-mgt_map_tail (linear and graph chaining), mgt_select_chains and
-mgt_format_gaf.  A read either arrives with the device front's
-compacted chains (mode 3) or, with host_collect=True, runs the native
-seed collection inside the worker (mgt_collect) and the whole host
-path.
+mode, and blob mode over the native reader's arenas with the fr_map and
+fr_flat hand-offs) and the graph/index context helpers it calls.  One
+call maps a batch of reads in native/mgt_batch.c: a work-stealing
+pthread loop over mgt_map_tail (linear and graph chaining),
+mgt_select_chains and mgt_format_gaf.  A read either arrives with the
+device front's compacted chains (mode 3) or runs the native seed
+collection inside the worker (mgt_collect) and the whole host path
+(mode 1).  The port's front always ships compacted chains, so the
+JAX package's other modes (0: f and p, 2: rmq) are not taken.
 """
 from __future__ import annotations
 
@@ -186,18 +188,54 @@ def _configure(lib):
     _configured = True
 
 
+def _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len,
+                 fpp, mode, mdx, mdy):
+    """Point read k of a native batch at a FrontResult's compacted
+    chains: mode 3, the device-backtracked chains skip the linear-chain
+    stage; fpp carries u, mdx its length (native/mgt_tail.c)."""
+    if fr.u is None:
+        raise ValueError("the native tail takes the front's compacted "
+                         "chains (FrontResult.u)")
+    ax = np.ascontiguousarray(fr.ax, dtype=np.uint64)
+    ay = np.ascontiguousarray(fr.ay, dtype=np.uint64)
+    mp = np.ascontiguousarray(fr.mini_pos, dtype=np.int64)
+    u64 = np.ascontiguousarray(fr.u, dtype=np.uint64)
+    keep.append((ax, ay, mp, u64))
+    n_a[k] = len(ax)
+    axp[k] = ax.ctypes.data
+    ayp[k] = ay.ctypes.data
+    mpp[k] = mp.ctypes.data
+    n_mv[k] = fr.n_mv
+    n_mini[k] = len(mp)
+    rep_len[k] = fr.rep_len
+    fpp[k] = u64.ctypes.data
+    mode[k] = 3
+    mdx[k] = len(u64)
+    mdy[k] = 0
+
+
 def map_batch_native(gi, opt, items, n_threads: int,
-                     host_collect: bool = False) -> dict:
+                     host_collect: bool = False, blob=None, fr_map=None,
+                     fr_flat=None) -> dict:
     """Map a batch of reads to GAF text in one native call.
 
     items: list of (key, qname, seq, FrontResult-or-None).  Without
     host_collect every item carries the device front's compacted chains
     (FrontResult.u set); with host_collect the FrontResult is ignored
     and the workers run the seed collection too.  Returns {key: text},
-    with None for a read whose native engines bailed (status != 0)."""
+    with None for a read whose native engines bailed (status != 0).
+
+    blob = (n, sq_addr, sq_off, nm_addr, nm_off, skip) maps a batch of
+    the native reader's arenas instead (items is then ignored and the
+    keys are the arena indices 0..n-1): every read not in `skip` runs
+    the whole host path in its worker (host collect), except the reads
+    the device front mapped, whose compacted chains come as batch arrays
+    (`fr_flat`, a list of (arena indices, DeviceFront.gather_flat blob))
+    or per read (`fr_map`, {arena index: FrontResult}).  A skipped
+    read comes back None."""
     lib = get_lib()
     _configure(lib)
-    n = len(items)
+    n = len(items) if blob is None else blob[0]
     if n == 0:
         return {}
     chn_pen_gap, chn_pen_skip = chain_penalties(gi, opt)
@@ -234,39 +272,57 @@ def map_batch_native(gi, opt, items, n_threads: int,
     qseq_off = np.zeros(n + 1, dtype=np.int64)
     qname_off = np.zeros(n + 1, dtype=np.int64)
     keep = []
-    seq_parts, name_parts = [], []
-    for k, (_, qname, seq, fr) in enumerate(items):
-        ql = len(seq)
-        qlen[k] = ql
-        if host_collect:
-            # mode 1: the whole linear-chain stage runs in the worker
-            mode[k] = 1
-            mdx[k] = mdy[k] = opt.max_gap
-        else:
-            ax = np.ascontiguousarray(fr.ax, dtype=np.uint64)
-            ay = np.ascontiguousarray(fr.ay, dtype=np.uint64)
-            mp = np.ascontiguousarray(fr.mini_pos, dtype=np.int64)
-            u64 = np.ascontiguousarray(fr.u, dtype=np.uint64)
-            keep.append((ax, ay, mp, u64))
-            n_a[k] = len(ax)
-            axp[k] = ax.ctypes.data
-            ayp[k] = ay.ctypes.data
-            mpp[k] = mp.ctypes.data
-            n_mv[k] = fr.n_mv
-            n_mini[k] = len(mp)
-            rep_len[k] = fr.rep_len
-            # mode 3: device-backtracked chains skip the linear-chain
-            # stage; fpp carries u, mdx its length (native/mgt_tail.c)
-            fpp[k] = u64.ctypes.data
-            mode[k] = 3
-            mdx[k] = len(u64)
-            mdy[k] = 0
-        seq_parts.append(seq)
-        name_parts.append(qname or "")
-        qseq_off[k + 1] = qseq_off[k] + ql
-        qname_off[k + 1] = qname_off[k] + len(name_parts[-1])
-    qseq_blob = "".join(seq_parts).encode("latin-1")
-    qname_blob = "".join(name_parts).encode("latin-1")
+    if blob is not None:
+        _, sq_addr, sq_off, nm_addr, nm_off, skip = blob
+        qseq_off[:] = sq_off
+        qname_off[:] = nm_off
+        qlen[:] = qseq_off[1:] - qseq_off[:-1]
+        mode[:] = 1
+        mdx[:] = mdy[:] = opt.max_gap
+        if skip is not None:
+            mode[skip] = -1      # the caller maps these reads itself
+        for idxs, fb in fr_flat or ():
+            if not len(idxs):
+                continue
+            keep.append(fb)
+            pre = fb["prefix"].astype(np.uint64)
+            n_a[idxs] = fb["n_a"]
+            axp[idxs] = fb["AX"].ctypes.data + pre * 8
+            ayp[idxs] = fb["AY"].ctypes.data + pre * 8
+            mpp[idxs] = fb["MINI"].ctypes.data \
+                + fb["mprefix"].astype(np.uint64) * 8
+            n_mini[idxs] = fb["n_mini"]
+            n_mv[idxs] = fb["n_q"]
+            rep_len[idxs] = fb["rep_len"]
+            mode[idxs] = 3
+            fpp[idxs] = fb["U"].ctypes.data \
+                + fb["uprefix"].astype(np.uint64) * 8
+            mdx[idxs] = fb["n_u"]
+            mdy[idxs] = 0
+        for k, fr in (fr_map or {}).items():
+            _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini,
+                         rep_len, fpp, mode, mdx, mdy)
+        qseq_blob = ct.cast(sq_addr, ct.c_char_p)
+        qname_blob = ct.cast(nm_addr, ct.c_char_p)
+        host_collect = True
+    else:
+        seq_parts, name_parts = [], []
+        for k, (_, qname, seq, fr) in enumerate(items):
+            ql = len(seq)
+            qlen[k] = ql
+            if host_collect:
+                # mode 1: the whole linear-chain stage runs in the worker
+                mode[k] = 1
+                mdx[k] = mdy[k] = opt.max_gap
+            else:
+                _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini,
+                             rep_len, fpp, mode, mdx, mdy)
+            seq_parts.append(seq)
+            name_parts.append(qname or "")
+            qseq_off[k + 1] = qseq_off[k] + ql
+            qname_off[k + 1] = qname_off[k] + len(name_parts[-1])
+        qseq_blob = "".join(seq_parts).encode("latin-1")
+        qname_blob = "".join(name_parts).encode("latin-1")
 
     args0 = _get_gfull_ctx(gi.g, gi.es)
     gctx = _get_gaf_ctx(gi.g)
@@ -302,6 +358,7 @@ def map_batch_native(gi, opt, items, n_threads: int,
         raise MemoryError("native batch tail: allocation failed")
     txt = ct.string_at(pbuf, total).decode("latin-1") if total else ""
     lib.mgt_buf_free(pbuf)
+    keys = range(n) if blob is not None else [it[0] for it in items]
     return {key: (txt[int(o_off[k]): int(o_off[k]) + int(o_len[k])]
                   if status[k] == 0 else None)
-            for k, (key, _, _, _) in enumerate(items)}
+            for k, key in enumerate(keys)}

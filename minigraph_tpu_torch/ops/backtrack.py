@@ -20,8 +20,19 @@ per anchor (bits [0..13] p+1, 14 claimed, 15 chain start, 16 visited,
 [17..31] start-f low 15 bits), exactly as the JAX version packs it, so
 the equal-f tie tests flag the same reads.
 
+The function runs in three steps:
+
+  (a) the candidate order: a stable sort of (f, index) and its inverse
+      permutation, in PyTorch (the JAX version sorts outside any
+      kernel too);
+  (b) the walk, the per-lane state machine: `walk_ref`, the plain
+      version, on CPU tensors; the CUDA kernel csrc/backtrack.cu
+      (`walk_cuda`, one block a read) on tensors on the card;
+  (c) the flags that read the walk's final planes and the compaction
+      by first-anchor x, in PyTorch, shared by both walks.
+
 Where the JAX version reads plane[b, j[b]] with a one-hot reduction,
-this port gathers (torch.gather), with j < 0 reading 0.  The loop runs
+the plain walk gathers (torch.gather), with j < 0 reading 0.  It runs
 in fixed chunks of interpreter steps and asks the device whether every
 lane is done only between chunks, so the host waits once per chunk and
 not once per step.  Lanes that are done do not change, so running a
@@ -59,25 +70,12 @@ def _put(plane, j, val, cond):
     plane.scatter_(1, jj, torch.where(cond, val, old)[:, None])
 
 
-def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
-                      min_sc: int, max_drop: int, ucap: int):
-    """(B, A) planes -> compacted chains, per lane.
-
-    f, p: int32 DP scores and parents; n_a: (B,); anchor planes are u32
-    values in int64 tensors.  Returns a dict:
-      c_axh/c_axl/c_ayh/c_ayl: (B, A) compacted chain anchors (dense
-        from 0, forward order, chains in first-anchor-x order)
-      u_sc/u_cnt: (B, ucap) int32 chain score / anchor count
-      n_u, n_v: (B,) int32 live counts
-      bt_unsure: (B,) bool — step budget exceeded, > ucap chains, or an
-        equal-f interaction
-    """
+def candidate_order(f, n_a, min_sc: int):
+    """Step (a): candidates (live anchors with f >= min_sc), their
+    ascending (f, index) order s_idx, its inverse permutation r_of (the
+    rank of each anchor) and the candidate count n_z, per lane."""
     B, A = f.shape
     dev = f.device
-    if A >= 1 << 14:
-        raise ValueError("anchor cap exceeds the packed parent field")
-    f = f.to(I32)
-    n_a = n_a.to(I32)
     idx = torch.arange(A, dtype=I32, device=dev)[None, :]
     live = idx < n_a[:, None]
     cand = live & (f >= min_sc)
@@ -86,13 +84,29 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
     # stable sort on f keeps equal keys in index order: the explicit
     # (f, index) two-key sort of the JAX version
     s_idx = torch.sort(key, dim=1, stable=True).indices
-    s_idx = s_idx.to(I32)
+    s_idx = s_idx.to(I32).contiguous()
     n_z = cand.sum(1).to(I32)
     # inverse permutation: rank of anchor a in the candidate order
     r_of = torch.empty_like(s_idx)
     r_of.scatter_(1, s_idx.long(), idx.expand(B, A).contiguous())
+    return cand, s_idx, r_of, n_z
 
-    max_steps = 8 * A + 16
+
+def walk_ref(f, p, s_idx, r_of, n_z, min_cnt: int, min_sc: int,
+             max_drop: int, ucap: int, max_steps: int):
+    """Step (b), the plain version: every lane's state machine (modes
+    0 select, 1 walk, 2 undo, 3 done), one step of each live lane per
+    iteration, at most max_steps steps a lane.  Returns a dict:
+      pk: (B, A) the final packed plane (p+1, claim bits, claimer f)
+      vbuf: (B, A) anchor indices of the kept chains, in build order
+      u_sc/u_cnt: (B, ucap) chain score / anchor count, build order
+      n_u, n_v: (B,) chains and anchors kept
+      unsure: (B,) bool, an equal-f tie hit, > ucap chains or the step
+        budget exhausted
+      steps: (B,) the steps each lane took"""
+    B, A = f.shape
+    dev = f.device
+    idx = torch.arange(A, dtype=I32, device=dev)[None, :]
     zeros = torch.zeros(B, dtype=I32, device=dev)
     mode = torch.where(n_z > 0, 0, 3).to(I32)
     k = n_z - 1
@@ -103,6 +117,7 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
     sc0 = zeros.clone()
     cut = zeros.clone()
     nv0 = zeros.clone()
+    lane_steps = zeros.clone()
     pk = (p.to(I32) + 1).contiguous()
     claimed_k = (idx >= n_z[:, None]).contiguous()
     vbuf = torch.zeros((B, A), dtype=I32, device=dev)
@@ -134,6 +149,7 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
             break
         for _ in range(min(CHUNK, max_steps - steps)):
             steps += 1
+            lane_steps = lane_steps + (mode != 3).to(I32)
             nv = n_v
             # --- mode 0: select the highest-ranked unclaimed candidate
             sel = mode == 0
@@ -223,11 +239,100 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
             n_v = torch.where(fin_now, n_v_fin, nv)
             unsure = unsure | over_u | tie_hit
     unsure = unsure | (mode != 3)
+    return dict(pk=pk, vbuf=vbuf, u_sc=u_sc, u_cnt=u_cnt, n_u=n_u, n_v=n_v,
+                unsure=unsure, steps=lane_steps)
+
+
+# shared memory of one block of the kernel: f, pk, s_idx, r_of and vbuf
+# as int32, claimed_k as bytes, u_sc and u_cnt (csrc/backtrack.cu)
+SMEM_LIMIT = 232448
+
+
+def walk_smem_bytes(A: int, ucap: int) -> int:
+    return 5 * 4 * A + ((A + 15) // 16) * 16 + 2 * 4 * ucap
+
+
+def walk_cuda(f, p, s_idx, r_of, n_z, min_cnt: int, min_sc: int,
+              max_drop: int, ucap: int, max_steps: int):
+    """Step (b) on the card: the CUDA kernel csrc/backtrack.cu, one
+    block a lane; the same outputs as walk_ref, bitwise."""
+    from .. import kernels
+    B, A = f.shape
+    if walk_smem_bytes(A, ucap) > SMEM_LIMIT:
+        raise ValueError(f"backtrack kernel: A={A} needs "
+                         f"{walk_smem_bytes(A, ucap)} bytes of shared "
+                         f"memory, a block holds {SMEM_LIMIT}")
+    dev = f.device
+    out = dict(pk=torch.empty((B, A), dtype=I32, device=dev),
+               vbuf=torch.empty((B, A), dtype=I32, device=dev),
+               u_sc=torch.empty((B, ucap), dtype=I32, device=dev),
+               u_cnt=torch.empty((B, ucap), dtype=I32, device=dev),
+               n_u=torch.empty(B, dtype=I32, device=dev),
+               n_v=torch.empty(B, dtype=I32, device=dev),
+               unsure=torch.empty(B, dtype=I32, device=dev),
+               steps=torch.empty(B, dtype=I32, device=dev))
+    if B:
+        kernels.launch("backtrack", f.to(I32).contiguous(),
+                       p.to(I32).contiguous(), s_idx, r_of,
+                       n_z.contiguous(), B, A, int(ucap), int(min_cnt),
+                       int(min_sc), int(max_drop), int(max_steps),
+                       out["pk"], out["vbuf"], out["u_sc"], out["u_cnt"],
+                       out["n_u"], out["n_v"], out["unsure"], out["steps"])
+    out["unsure"] = out["unsure"] != 0
+    return out
+
+
+def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
+                      min_sc: int, max_drop: int, ucap: int,
+                      max_steps: int = None):
+    """(B, A) planes -> compacted chains, per lane: the plain walk for
+    CPU tensors, the CUDA kernel (csrc/backtrack.cu) for tensors on the
+    card.
+
+    f, p: int32 DP scores and parents; n_a: (B,); anchor planes are u32
+    values in int64 tensors.  max_steps (default 8*A + 16) is the step
+    budget of a lane; no entry point passes it.  Returns a dict:
+      c_axh/c_axl/c_ayh/c_ayl: (B, A) compacted chain anchors (dense
+        from 0, forward order, chains in first-anchor-x order)
+      u_sc/u_cnt: (B, ucap) int32 chain score / anchor count
+      n_u, n_v: (B,) int32 live counts
+      bt_unsure: (B,) bool — step budget exceeded, > ucap chains, or an
+        equal-f interaction
+      steps: (B,) int32 steps each lane's walk took
+    """
+    walk = walk_ref if f.device.type == "cpu" else walk_cuda
+    return _backtrack(walk, f, p, n_a, axh, axl, ayh, ayl, min_cnt, min_sc,
+                      max_drop, ucap, max_steps)
+
+
+def backtrack_compact_ref(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
+                          min_sc: int, max_drop: int, ucap: int,
+                          max_steps: int = None):
+    """backtrack_compact with the plain walk on any device."""
+    return _backtrack(walk_ref, f, p, n_a, axh, axl, ayh, ayl, min_cnt,
+                      min_sc, max_drop, ucap, max_steps)
+
+
+def _backtrack(walk, f, p, n_a, axh, axl, ayh, ayl, min_cnt, min_sc,
+               max_drop, ucap, max_steps):
+    B, A = f.shape
+    dev = f.device
+    if A >= 1 << 14:
+        raise ValueError("anchor cap exceeds the packed parent field")
+    if max_steps is None:
+        max_steps = 8 * A + 16
+    f = f.to(I32)
+    n_a = n_a.to(I32)
+    cand, s_idx, r_of, n_z = candidate_order(f, n_a, min_sc)
+    w = walk(f, p, s_idx, r_of, n_z, min_cnt, min_sc, max_drop, ucap,
+             max_steps)
+    pk, vbuf, u_sc, u_cnt = w["pk"], w["vbuf"], w["u_sc"], w["u_cnt"]
+    n_u, n_v = w["n_u"], w["n_v"]
     # a candidate claimed mid-path by an equal-f chain was silently
     # skipped by the select: flag it (15-bit f compare)
-    unsure = unsure | (((pk & PK_CLAIMED) > 0) & cand
-                       & (((pk >> 17) & F15) == (f & F15))
-                       & ((pk & PK_START) == 0)).any(1)
+    unsure = w["unsure"] | (((pk & PK_CLAIMED) > 0) & cand
+                            & (((pk >> 17) & F15) == (f & F15))
+                            & ((pk & PK_START) == 0)).any(1)
 
     # ---- compact: chains by first-anchor x asc (stable) ----
     ur = torch.arange(ucap, dtype=I32, device=dev)[None, :]
@@ -269,4 +374,4 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
 
     return dict(c_axh=g(axh), c_axl=g(axl), c_ayh=g(ayh), c_ayl=g(ayl),
                 u_sc=sc_o, u_cnt=cnt_o, n_u=n_u, n_v=n_v,
-                bt_unsure=unsure)
+                bt_unsure=unsure, steps=w["steps"])

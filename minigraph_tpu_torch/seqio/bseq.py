@@ -106,3 +106,60 @@ class BSeqFile:
             out.append(s)
             size += s.l_seq
         return out
+
+
+class NativeSeqReader:
+    """Arena batch reader over native/mgt_seqio.c: records land in C
+    buffers (uppercased, U->T) that the native batch tail reads
+    directly; Python strings exist only for reads that take the
+    per-read path.  The batch boundaries are BSeqFile.read_batch's."""
+
+    _configured = False
+
+    def __init__(self, fn: str):
+        import ctypes as ct
+
+        from ..utils.native import get_lib
+        lib = get_lib()
+        if not NativeSeqReader._configured:
+            lib.mgt_seq_open.restype = ct.c_void_p
+            lib.mgt_seq_open.argtypes = [ct.c_char_p]
+            lib.mgt_seq_read_batch2.restype = ct.c_int64
+            lib.mgt_seq_read_batch2.argtypes = [ct.c_void_p, ct.c_int64,
+                                                ct.c_int64, ct.c_void_p]
+            lib.mgt_seq_close.restype = None
+            lib.mgt_seq_close.argtypes = [ct.c_void_p]
+            NativeSeqReader._configured = True
+        self._lib = lib
+        self._h = lib.mgt_seq_open(fn.encode())
+        if not self._h:
+            raise OSError(f"cannot open {fn}")
+
+    def read_batch_arena(self, max_bp: int, frag_mode: bool = False):
+        """(n, sq_addr, sq_off, nm_addr, nm_off) of the next batch, or
+        None at the end of the file.  The reader keeps three arena sets,
+        so a batch stays valid while the next two are read.  frag_mode
+        keeps same-name fragment runs within one batch."""
+        import ctypes as ct
+
+        import numpy as np
+        ptrs = np.zeros(4, dtype=np.uint64)
+        n = self._lib.mgt_seq_read_batch2(self._h, max_bp, int(frag_mode),
+                                          ct.c_void_p(ptrs.ctypes.data))
+        if n == -2:
+            raise IOError("sequence input truncated or corrupt "
+                          "(gzip stream error)")
+        if n < 0:
+            raise MemoryError("native reader allocation failure")
+        if n == 0:
+            return None
+        sq_off = np.ctypeslib.as_array(
+            (ct.c_int64 * (n + 1)).from_address(int(ptrs[1])))
+        nm_off = np.ctypeslib.as_array(
+            (ct.c_int64 * (n + 1)).from_address(int(ptrs[3])))
+        return int(n), int(ptrs[0]), sq_off, int(ptrs[2]), nm_off
+
+    def close(self):
+        if self._h:
+            self._lib.mgt_seq_close(self._h)
+            self._h = None

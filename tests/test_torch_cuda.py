@@ -17,6 +17,8 @@ import pytest
 import torch
 
 from minigraph_tpu_torch import kernels
+from minigraph_tpu_torch.ops.backtrack import (backtrack_compact,
+                                               backtrack_compact_ref)
 from minigraph_tpu_torch.ops.chain import lchain_dp_planes, lchain_dp_tiled_ref
 from minigraph_tpu_torch.ops.chain_chunked import (lchain_dp_chunked,
                                                    lchain_dp_chunked_ref)
@@ -562,3 +564,98 @@ def test_map_files_on_card_matches_host(card, tmp_path):
         outs[dev] = buf.getvalue()
     assert outs["cuda"] == outs[None]
     assert outs[None].count("\n") >= 50
+
+
+BT_KEYS = ("c_axh", "c_axl", "c_ayh", "c_ayl", "u_sc", "u_cnt", "n_u", "n_v",
+           "bt_unsure", "steps")
+
+
+def bt_planes(rng, B, A):
+    """Backtrack inputs: random parent forests whose f values rise and
+    fall (tests/test_backtrack_device.py's fuzz), an empty lane, a lane
+    of n_a = A, a lane of 100 three-anchor chains (over ucap = 64) and a
+    lane of few distinct f values (interacting equal-f ties)."""
+    F = np.zeros((B, A), np.int32)
+    P = np.full((B, A), -1, np.int32)
+    NA = np.zeros(B, np.int32)
+    for b in range(1, B):
+        n = A if b == 1 else int(rng.integers(min(20, A), A + 1))
+        NA[b] = n
+        lo, hi, step = (40, 44, (0, 3)) if b == 3 else (10, 80, (-40, 60))
+        for i in range(n):
+            if i and rng.random() < 0.9:
+                j = int(rng.integers(max(0, i - 12), i))
+                P[b, i] = j
+                F[b, i] = F[b, j] + int(rng.integers(*step))
+            else:
+                F[b, i] = int(rng.integers(lo, hi))
+    if A >= 300 and B > 2:
+        NA[2] = 300
+        F[2, :300], P[2, :300] = 0, -1
+        for c in range(100):
+            i = 3 * c
+            F[2, i: i + 3] = [5, 20, 45 + c % 10]
+            P[2, i + 1: i + 3] = [i, i + 1]
+    ax = np.sort(rng.integers(0, 1 << 33, (B, A)), axis=1)
+    ay = rng.integers(0, 1 << 40, (B, A))
+    planes = [ax >> 32, ax & 0xFFFFFFFF, ay >> 32, ay & 0xFFFFFFFF]
+    return [torch.from_numpy(x).cuda() for x in (F, P, NA, *planes)]
+
+
+@pytest.mark.parametrize("max_steps", [None, 64])
+@pytest.mark.parametrize("A,B", [(16, 6), (512, 16), (2048, 8), (5376, 6)])
+def test_backtrack_kernel_matches_ref(card, A, B, max_steps):
+    args = bt_planes(np.random.default_rng(A), B, A)
+    kw = dict(min_cnt=3, min_sc=40, max_drop=60, ucap=64,
+              max_steps=max_steps)
+    got = backtrack_compact(*args, **kw)
+    ref = backtrack_compact_ref(*args, **kw)
+    torch.cuda.synchronize()
+    for key in BT_KEYS:
+        assert torch.equal(got[key], ref[key]), key
+    assert int(got["n_u"].sum()) > 0
+    if max_steps:
+        assert got["bt_unsure"][got["steps"] >= max_steps].all()
+        assert A == 16 or (got["steps"] >= max_steps).any()
+    if A >= 300 and max_steps is None:
+        assert int(got["n_u"][2]) == 64 and got["bt_unsure"][2]
+
+
+def test_backtrack_kernel_shared_memory_limit(card):
+    """Past the 227 KB a block may hold the wrapper refuses the shape;
+    the widest that fits runs and agrees with the plain walk."""
+    from minigraph_tpu_torch.ops.backtrack import SMEM_LIMIT, walk_smem_bytes
+    A = 11000
+    assert walk_smem_bytes(A, 64) <= SMEM_LIMIT < walk_smem_bytes(A + 64, 64)
+    args = bt_planes(np.random.default_rng(5), 3, A)
+    kw = dict(min_cnt=3, min_sc=40, max_drop=60, ucap=64)
+    got = backtrack_compact(*args, **kw)
+    ref = backtrack_compact_ref(*args, **kw)
+    for key in BT_KEYS:
+        assert torch.equal(got[key], ref[key]), key
+    wide = bt_planes(np.random.default_rng(6), 2, A + 64)
+    with pytest.raises(ValueError):
+        backtrack_compact(*wide, **kw)
+
+
+def test_front_launches_backtrack_once_a_batch(card, tmp_path):
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.mapping.device_front import DeviceFront
+    from minigraph_tpu_torch.options import MapOptions
+    from minigraph_tpu_torch.tools.synth import (make_reference,
+                                                 simulate_reads,
+                                                 write_bubble_rgfa)
+    ref = make_reference(300_000, seed=8)
+    hap = write_bubble_rgfa(ref, 9, str(tmp_path / "g.gfa"), seg_len=20_000)
+    reads = [s for _, s in simulate_reads([hap], 40, seed=10, mean_len=3000,
+                                          min_len=300, max_len=9000)]
+    mo = MapOptions()
+    front = DeviceFront(build_index(read_gfa(str(tmp_path / "g.gfa")), 17,
+                                    11, mo), mo, device="cuda",
+                        buckets=((2048, 16), (8192, 8), (32768, 8)))
+    kernels.reset_launches()
+    out = front.gather(front.submit(reads))
+    assert front.n_batches >= 3
+    assert kernels.launches["backtrack"] == front.n_batches
+    assert sum(fr is not None for fr in out) >= 20

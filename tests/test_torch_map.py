@@ -1,8 +1,12 @@
-"""GAF bytes of the port's map_files against the JAX package's: the port
-with device="cpu" (seed and chain stages through the plain PyTorch
+"""GAF bytes of the port's file loops against the JAX package's: the
+port with device="cpu" (seed and chain stages through the plain PyTorch
 versions), the port with device=None (every read on the native host
 path) and the JAX package's map_files(device=False) write the same
-bytes; so does the port's command line."""
+bytes, through map_batch (the loop of a file the native reader cannot
+open, e.g. stdin) and through the native file loop with the host/device
+split pinned to send every eligible read to the device front; so does
+the port's command line (the native file loop with the split as it
+starts)."""
 import io
 import os
 import subprocess
@@ -17,7 +21,9 @@ from minigraph_tpu.mapping.mapper import map_files as jax_map_files
 from minigraph_tpu.options import IndexOptions as JaxIndexOptions
 from minigraph_tpu.options import MapOptions as JaxMapOptions
 from minigraph_tpu_torch.graph.gfa_io import read_gfa
-from minigraph_tpu_torch.mapping.mapper import map_files
+from minigraph_tpu_torch.index.midx import build_index
+from minigraph_tpu_torch.mapping.device_front import DeviceFront
+from minigraph_tpu_torch.mapping import mapper
 from minigraph_tpu_torch.options import (MG_M_SHOW_UNMAP, IndexOptions,
                                          MapOptions)
 from minigraph_tpu_torch.tools.synth import (make_reference, simulate_reads,
@@ -45,13 +51,32 @@ def files(tmp_path_factory):
     return str(d / "g.gfa"), str(d / "r.fa")
 
 
-def port_gaf(files, device, flag=0):
+def _refuse(fn):
+    raise OSError(f"cannot open {fn}")
+
+
+def port_gaf(files, device, flag=0, loop="batch"):
+    """The port's GAF text and stats.  loop="batch": map_files with the
+    native reader refused, so map_reads maps the file batch by batch
+    through map_batch.  loop="native": the native file loop; map_files
+    for device=None, for a device map_reads with the host/device split
+    pinned at share 0 (every eligible read to the device front)."""
     gfa, fa = files
     out, st = io.StringIO(), {}
     mo = MapOptions()
     mo.flag |= flag
-    map_files(read_gfa(gfa), [fa], IndexOptions(), mo, out=out,
-              n_threads=2, device=device, stats=st)
+    if loop == "batch" or device is None:
+        with pytest.MonkeyPatch.context() as mp:
+            if loop == "batch":
+                mp.setattr(mapper, "NativeSeqReader", _refuse)
+            mapper.map_files(read_gfa(gfa), [fa], IndexOptions(), mo,
+                             out=out, n_threads=2, device=device, stats=st)
+        return out.getvalue(), st
+    ipt = IndexOptions()
+    gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
+    front = DeviceFront(gi, mo, device=device)
+    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    mapper.map_reads(gi, mo, [fa], out, 2, front, st)
     return out.getvalue(), st
 
 
@@ -74,6 +99,22 @@ def test_gaf_bytes_match_jax(files, flag):
     assert host == want
     assert dev == want
     assert st["n_device"] >= 40, st
+    assert set(st["stage_ms"]) == {"sketch", "collect", "chain",
+                                   "backtrack", "pack"}
+    assert "n_arena" not in st, st          # map_batch, not the native loop
+
+
+@pytest.mark.parametrize("flag", [0, MG_M_SHOW_UNMAP])
+def test_native_loop_gaf_bytes_match_jax(files, flag):
+    want = jax_gaf(files, flag)
+    host, st_host = port_gaf(files, None, flag, loop="native")
+    dev, st = port_gaf(files, "cpu", flag, loop="native")
+    assert want.count("\n") >= 40
+    assert host == want
+    assert dev == want
+    assert st_host["n_arena"] >= 1 and st["n_arena"] >= 1
+    assert st["n_device"] >= 40, st
+    assert st["n_share_host"] == 0, st      # the pin held
     assert set(st["stage_ms"]) == {"sketch", "collect", "chain",
                                    "backtrack", "pack"}
 

@@ -2,9 +2,12 @@
 calls, seqio/gaf.py write_gaf) against the JAX package's: for every
 read the GAF bytes are equal on the whole native tail and on each
 decomposed path that a native bail leads to, each forced on both sides
-by the same stub.  Then map_batch re-maps the reads whose native batch
-tail bailed on that path, for device="cpu" and device=None, with the
-bytes of the JAX package's map_files and of the unforced run."""
+by the same stub.  Then each file loop re-maps the reads whose native
+batch tail bailed on that path, with the bytes of the JAX package's
+map_files and of the unforced run: map_batch (the loop of a file the
+native reader cannot open, e.g. stdin) for device="cpu" and
+device=None, and the native file loop with a CPU device front (the
+split pinned at share 0) and with device=None."""
 import io
 
 import pytest
@@ -26,6 +29,7 @@ import minigraph_tpu_torch.mapping.lchain as port_lchain
 import minigraph_tpu_torch.mapping.mapper as port_mapper
 from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
+from minigraph_tpu_torch.mapping.device_front import DeviceFront
 from minigraph_tpu_torch.options import (MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
                                          IndexOptions, MapOptions)
 from minigraph_tpu_torch.seqio.gaf import write_gaf
@@ -110,17 +114,37 @@ def _bail_some(monkeypatch):
     """map_batch_native reports a bail for every third read."""
     real = port_mapper.map_batch_native
 
-    def bailing(gi, opt, items, n_threads, host_collect=False):
-        res = real(gi, opt, items, n_threads, host_collect)
+    def bailing(*args, **kw):
+        res = real(*args, **kw)
         return {k: (None if k % 3 == 0 else v) for k, v in res.items()}
     monkeypatch.setattr(port_mapper, "map_batch_native", bailing)
 
 
-def _port_gaf(files, device, stats=None):
+def _refuse(fn):
+    raise OSError(f"cannot open {fn}")
+
+
+def _port_gaf(files, device, stats=None, loop="batch"):
+    """The port's GAF text.  loop="batch": map_files with the native
+    reader refused, so map_reads maps the file batch by batch through
+    map_batch.  loop="native": the native file loop; map_files for
+    device=None, for a device map_reads with the host/device split
+    pinned at share 0 (every eligible read to the device front)."""
     out = io.StringIO()
-    port_mapper.map_files(read_gfa(files[0]), [files[1]], IndexOptions(),
-                          MapOptions(flag=FLAG), out=out, n_threads=2,
-                          device=device, stats=stats)
+    if loop == "batch" or device is None:
+        with pytest.MonkeyPatch.context() as mp:
+            if loop == "batch":
+                mp.setattr(port_mapper, "NativeSeqReader", _refuse)
+            port_mapper.map_files(read_gfa(files[0]), [files[1]],
+                                  IndexOptions(), MapOptions(flag=FLAG),
+                                  out=out, n_threads=2, device=device,
+                                  stats=stats)
+        return out.getvalue()
+    opt = MapOptions(flag=FLAG)
+    gi = build_index(read_gfa(files[0]), 17, 11, opt)
+    front = DeviceFront(gi, opt, device=device)
+    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    port_mapper.map_reads(gi, opt, [files[1]], out, 2, front, stats)
     return out.getvalue()
 
 
@@ -144,5 +168,23 @@ def test_map_batch_bailed_reads(files, unforced, monkeypatch, device, path):
     forced = _port_gaf(files, device, st)
     assert forced == plain == want
     assert st["n_perread"] == (len(files[2]) + 2) // 3, st
+    assert "n_arena" not in st, st              # map_batch, not the native loop
     if device is not None:
         assert st["n_device"] >= 15, st
+
+
+@pytest.mark.parametrize("path", ["whole_tail", "decomposed"])
+@pytest.mark.parametrize("device", ["cpu", None])
+def test_native_loop_bailed_reads(files, unforced, monkeypatch, device,
+                                  path):
+    want, plain = unforced[0], unforced[1][device]
+    _bail_some(monkeypatch)
+    _force(monkeypatch, PATHS[path])
+    st = {}
+    forced = _port_gaf(files, device, st, loop="native")
+    assert forced == plain == want
+    assert st["n_perread"] == (len(files[2]) + 2) // 3, st
+    assert st["n_arena"] >= 1, st
+    if device is not None:
+        assert st["n_device"] >= 15, st
+        assert st["n_share_host"] == 0, st      # the pin held
