@@ -10,7 +10,8 @@ Phases, in order; any failure exits non-zero:
    checkout;
 3. kernels against their plain PyTorch versions on the card, bitwise:
    the sketch kernel at the three buckets' shapes on synthetic reads
-   with N runs, tandem repeats and empty lanes; the exact chain kernel
+   with N runs, tandem repeats and empty lanes, at lr's (k, w) = (17,
+   11) and at asm's (19, 10); the exact chain kernel
    (K2), the chunked-walk chain kernel (K3) and the backtrack walk
    kernel (csrc/backtrack.cu, through ops/backtrack.py
    backtrack_compact, on K2's f and p) on the same anchors from the
@@ -35,9 +36,9 @@ Phases, in order; any failure exits non-zero:
    MGT_CHAIN_CHUNKED=1: the same reads on the device, K3 launched and K2
    not; (iii) (i) with the native batch tail reporting a bail for every
    40th read of a batch, which re-maps those reads on the exact per-read
-   path (mapping/mapper.py map_frag), once through the native file loop
-   and once through map_batch (the loop of a file the native reader
-   cannot open); (iv) map_files(device="cuda") with the split as it
+   path (mapping/mapper.py map_frag), through the native file loop
+   (phase 7 (c) repeats it through the Python reader loop); (iv)
+   map_files(device="cuda") with the split as it
    starts (share 0.35): (a) over 20 arena batches of ~57 reads, then on
    a file of the same mix with 12.5x the reads (b) at the default -K
    (one arena batch, as the command line runs) and (c) over 17 arena
@@ -60,7 +61,25 @@ Phases, in order; any failure exits non-zero:
    at wa=32 on 4096 pairs of 256-2048 bp cut from the 5 Mb reference
    (the -c gap jobs' lengths) with 2% substitutions and 1% indels, 5% of
    them with a length skew beyond the band; the kernel against its
-   plain version, bitwise.
+   plain version, bitwise;
+7. the rest of the command line on the card, each run held to the GAF
+   bytes of its host-only run and printing reads/s, map_ms and stage ms:
+   (a) asm: the phase 4 graph indexed with -x asm (k = 19, w = 10), the
+   query a haplotype of its reference (make_haplotype, seed 7) cut into
+   ~5 Mb of consecutive contigs (lognormal, mean 12 kb, 2-32 kb, every
+   50th 200 kb, which the host maps), through the native file loop with
+   the split pinned at share 0 (run twice, the second timed): the
+   seed-only front launches the sketch kernel and no chain or backtrack
+   kernel, every eligible contig goes to the device; n_device,
+   n_fallback and the flat-plane overflows printed; then host only;
+   (b) sr: 50,000 FR pairs of 2x150 bp (inserts around 400 bp, 0.3%
+   substitutions, 0.02% indels) off the same haplotype, as two files
+   through map_files(device="cuda") (the Python reader loop; no pair is
+   device-eligible, n_device = 0) and host only, and as one interleaved
+   file through the native arena loop (host only, mates grouped in C);
+   (c) phase 4's reads through the Python reader loop (the native
+   reader refused, as for stdin) with the split pinned at share 0 and a
+   bail forced on every 40th read.
 
 After the build it prints ptxas' registers, stack frame and spills of
 the sketch, chunked-chain, ring-chain, banded-score and backtrack
@@ -606,37 +625,36 @@ def forced_bail_run(gi, mo, reads, every, loop="native"):
         mapper.map_batch_native = real
 
 
-def device_run(gi, mo, reads, loop="native"):
-    """The port's file loop with a front on the card.  loop="native":
-    the native file loop with the host/device split pinned at share 0
-    (every eligible read to the device), held to have sent no read to
-    the host; loop="batch": the native reader refused, so map_reads maps
-    the file batch by batch through map_batch (the loop of a file the
-    native reader cannot open, e.g. stdin).  Returns (GAF text, stats)."""
+def device_run(gi, mo, reads, loop="native", n_host=0):
+    """The port's file loop with a front on the card and the host/device
+    split pinned at share 0 (every eligible read to the device), held to
+    have sent n_host reads (the ineligible ones) to the host and kept
+    the share at 0.  loop="native": the native file loop; loop="python":
+    the native reader refused, so the Python reader loop maps the file
+    (the loop of a file the native reader cannot open, e.g. stdin).
+    Returns (GAF text, stats)."""
     from minigraph_tpu_torch.mapping import mapper
     from minigraph_tpu_torch.mapping.device_front import DeviceFront
     front = DeviceFront(gi, mo, device="cuda")
+    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
     buf, st = io.StringIO(), {}
-    if loop == "native":
-        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
-        mapper.map_reads(gi, mo, [reads], buf, 8, front, st)
-        # the pin holds only while the host measures no cost
-        if st["n_share_host"] or st["share"] != 0.0:
-            raise AssertionError(f"the pinned split sent "
-                                 f"{st['n_share_host']} reads to the host "
-                                 f"(share {st['share']})")
-        return buf.getvalue(), st
 
     def refuse(fn):
         raise OSError(f"cannot open {fn}")
     real = mapper.NativeSeqReader
-    mapper.NativeSeqReader = refuse
+    if loop == "python":
+        mapper.NativeSeqReader = refuse
     try:
         mapper.map_reads(gi, mo, [reads], buf, 8, front, st)
     finally:
         mapper.NativeSeqReader = real
-    if "n_arena" in st:
-        raise AssertionError("the native reader was not refused")
+    if ("n_arena" in st) != (loop == "native"):
+        raise AssertionError(f"{loop} loop: arena batches {st}")
+    # the pin holds only while the host measures no eligible read's cost
+    if st["n_share_host"] != n_host or st["share"] != 0.0:
+        raise AssertionError(f"the pinned split sent "
+                             f"{st['n_share_host']} reads to the host, "
+                             f"{n_host} expected (share {st['share']})")
     return buf.getvalue(), st
 
 
@@ -669,7 +687,7 @@ def split_line(name, st):
 def run_line(name, st, n_reads):
     """reads/s and stage ms of one main-path run."""
     stages = {k: round(v, 3) for k, v in st.get("stage_ms", {}).items()}
-    stages["tail_host"] = round(st["tail_ms"], 3)
+    stages["tail_host"] = round(st.get("tail_ms", 0.0), 3)
     return (f"{name}: {n_reads / (st['map_ms'] / 1e3):.1f} reads/s (map "
             f"{st['map_ms']:.1f} ms); device share {st.get('n_share_dev', 0)}"
             f" reads, host share {st.get('n_share_host', 0)}, "
@@ -787,6 +805,134 @@ def step_phase(gi, hash_tables, reads, flat_gi, flat_reads, kernels):
     return launches, k4, k5, k6
 
 
+def host_run(gi, mo, fns):
+    """Host-only mapping of `fns` on a built index: (GAF text, stats)."""
+    from minigraph_tpu_torch.mapping.mapper import map_reads
+    buf, st = io.StringIO(), {}
+    map_reads(gi, mo, fns, buf, 8, None, st)
+    return buf.getvalue(), st
+
+
+def cli_phase(ref, gfa, work, kernels, k1_asm):
+    """Phase 7 (a) asm and (b) sr on the phase 4 graph."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.mapping.mapper import map_files
+    from minigraph_tpu_torch.options import IndexOptions, MapOptions, opt_set
+    from minigraph_tpu_torch.tools.synth import (cut_contigs, make_haplotype,
+                                                 simulate_pairs, write_fasta)
+    t0 = time.perf_counter()
+    hap7 = make_haplotype(ref, seed=7)
+    ctg = cut_contigs(hap7, seed=8)
+    asm_fa = str(work / "asm_contigs.fa")
+    write_fasta(asm_fa, ctg)
+    r1, r2 = simulate_pairs(hap7, 50_000, seed=9)
+    sr_fa = [str(work / "sr_1.fa"), str(work / "sr_2.fa")]
+    write_fasta(sr_fa[0], r1)
+    write_fasta(sr_fa[1], r2)
+    sr_int = str(work / "sr_interleaved.fa")
+    write_fasta(sr_int, [x for p in zip(r1, r2) for x in p])
+    lens = np.array([len(s) for _, s in ctg])
+    n_long = int((lens > 32768).sum())
+    log(f"phase 7 inputs in {time.perf_counter() - t0:.1f} s: {len(ctg)} "
+        f"contigs ({int(lens.sum())} bp, mean {lens.mean():.0f}, median "
+        f"{np.median(lens):.0f}, {n_long} over 32 kb), {len(r1)} pairs")
+    for (B, L), k in zip(((256, 2048), (128, 8192), (128, 32768)), k1_asm):
+        log(f"sketch (19, 10) at ({B}, {L}): {json.dumps(k)}")
+
+    # (a) asm
+    io_a, mo_a = IndexOptions(), MapOptions()
+    opt_set("asm", io_a, mo_a)
+    t0 = time.perf_counter()
+    gi_a = build_index(read_gfa(gfa), io_a.k, io_a.w, mo_a)
+    log(f"asm index: {len(gi_a.keys)} keys (k={io_a.k}, w={io_a.w}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    host_a, st_ha = host_run(gi_a, mo_a, [asm_fa])
+    device_run(gi_a, mo_a, asm_fa, n_host=n_long)      # one-time costs
+    kernels.reset_launches()
+    gaf_a, st_a = device_run(gi_a, mo_a, asm_fa, n_host=n_long)
+    launches = dict(kernels.launches)
+    if gaf_a != host_a:
+        raise AssertionError(f"asm: GAF differs from the host run at line "
+                             f"{first_diff(gaf_a, host_a)}")
+    if launches["sketch"] <= 0 or launches["sketch"] != st_a["n_batches"]:
+        raise AssertionError(f"asm: sketch launches {launches} for "
+                             f"{st_a['n_batches']} device batches")
+    for name in ("chain_exact", "chain_chunked", "backtrack"):
+        if launches[name]:
+            raise AssertionError(f"asm: the seed-only front launched "
+                                 f"{name}: {launches}")
+    if set(st_a["stage_ms"]) != {"sketch", "collect", "pack"}:
+        raise AssertionError(f"asm stages {st_a['stage_ms']}")
+    if st_a["n_share_dev"] != len(ctg) - n_long or st_a["n_device"] <= 0:
+        raise AssertionError(f"asm: {st_a['n_share_dev']} contigs to the "
+                             f"device, {st_a['n_device']} kept")
+    log(f"phase 7 (a) asm, share pinned at 0: GAF bytes equal to the "
+        f"host-only run ({host_a.count(chr(10))} lines, {len(host_a)} "
+        f"bytes); n_device {st_a['n_device']}, n_fallback "
+        f"{st_a['n_fallback']}, flat-plane overflows {st_a['n_flat_ovf']} "
+        f"of {st_a['n_batches']} device batches, {n_long} contigs over 32 "
+        f"kb to the host, per-read path {st_a['n_perread']}; launches "
+        f"{launches}")
+    log(run_line("run (a) asm, seed-only front", st_a, len(ctg)))
+    log(run_line("run (a) asm, host only", st_ha, len(ctg))
+        + ", 8 host threads")
+
+    # (b) sr: two files through map_files(device="cuda"), host only, and
+    # the interleaved file through the native arena loop
+    io_s, mo_s = IndexOptions(), MapOptions()
+    opt_set("sr", io_s, mo_s)
+    t0 = time.perf_counter()
+    gi_s = build_index(read_gfa(gfa), io_s.k, io_s.w, mo_s)
+    log(f"sr index: {len(gi_s.keys)} keys (k={io_s.k}, w={io_s.w}) in "
+        f"{time.perf_counter() - t0:.1f} s")
+    host_s, st_hs = host_run(gi_s, mo_s, sr_fa)
+    int_s, st_is = host_run(gi_s, mo_s, [sr_int])
+    buf, st_ds = io.StringIO(), {}
+    kernels.reset_launches()
+    map_files(read_gfa(gfa), sr_fa, io_s, mo_s, out=buf, n_threads=8,
+              device="cuda", stats=st_ds)
+    for name, got, st in (("two files on the card", buf.getvalue(), st_ds),
+                          ("interleaved, native arena loop", int_s, st_is)):
+        if got != host_s:
+            raise AssertionError(f"sr {name}: GAF differs from the host run "
+                                 f"at line {first_diff(got, host_s)}")
+    if st_ds["n_device"] != 0 or "n_arena" in st_ds \
+            or st_is["n_arena"] <= 0:
+        raise AssertionError(f"sr: {st_ds}; {st_is}")
+    n_pairs = len(r1)
+    log(f"phase 7 (b) sr: GAF bytes equal in all three runs "
+        f"({host_s.count(chr(10))} lines, {len(host_s)} bytes); n_device "
+        f"{st_ds['n_device']} (heap-sort reads are not device-eligible), "
+        f"launches {dict(kernels.launches)}")
+    for name, st in (("two files, map_files(device='cuda')", st_ds),
+                     ("two files, host only", st_hs),
+                     ("interleaved, native arena loop", st_is)):
+        log(run_line(f"run (b) sr {name}", st, n_pairs) + " (pairs/s)")
+
+
+def forced_python_run(gi, mo, reads_fa, host_gaf, n_reads, kernels):
+    """Phase 7 (c): phase 4's reads through the Python reader loop (the
+    native reader refused), the split pinned at share 0, a bail forced
+    on every 40th read of a batch."""
+    kernels.reset_launches()
+    gaf, st = forced_bail_run(gi, mo, reads_fa, 40, "python")
+    if gaf != host_gaf:
+        raise AssertionError(f"Python loop with forced bails: GAF differs "
+                             f"at line {first_diff(gaf, host_gaf)}")
+    launches = dict(kernels.launches)
+    for name in ("sketch", "chain_exact", "backtrack"):
+        if launches[name] <= 0:
+            raise AssertionError(f"Python loop: {name} not launched")
+    if launches["backtrack"] != st["n_batches"] or st["n_perread"] <= 0:
+        raise AssertionError(f"Python loop: {launches}, {st}")
+    log(f"phase 7 (c) Python reader loop, forced bails: {st['n_perread']} "
+        f"reads re-mapped on the per-read path, {st['n_device']} kept on "
+        f"the device, GAF bytes equal to the host-only run; launches "
+        f"{launches}")
+    log(run_line("run (c) forced bails, Python loop", st, n_reads))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -862,6 +1008,10 @@ def main() -> int:
     k1 = check_sketch(rng, 256, 2048, io_.w, io_.k, reps=20)
     k1_mid = check_sketch(rng, 128, 8192, io_.w, io_.k, reps=10)
     k1_long = check_sketch(rng, 128, 32768, io_.w, io_.k, reps=5)
+    # asm's (k, w) = (19, 10) at the same three shapes
+    k1_asm = [check_sketch(rng, B, L, 10, 19, reps=r)
+              for B, L, r in ((256, 2048, 20), (128, 8192, 10),
+                              (128, 32768, 5))]
     g = read_gfa(str(work / "mhc5m.gfa"))
     gi = build_index(g, io_.k, io_.w, mo)
     front = DeviceFront(gi, mo, device="cuda")
@@ -960,24 +1110,22 @@ def main() -> int:
     log(run_line("run (ii) device path, K3", st_c, n_reads))
 
     # (iii) bails forced for every 40th read of a batch, through the
-    # native file loop and through map_batch
-    for loop in ("native", "batch"):
-        kernels.reset_launches()
-        forced_gaf, st_f = forced_bail_run(gi, mo, reads_fa, 40, loop)
-        if forced_gaf != host_gaf:
-            raise AssertionError(
-                f"GAF with forced per-read fallbacks ({loop} loop) differs "
-                f"at line {first_diff(forced_gaf, host_gaf)}")
-        if st_f["n_perread"] <= 0:
-            raise AssertionError("the forced run took no read off the batch")
-        if kernels.launches["backtrack"] != st_f["n_batches"]:
-            raise AssertionError(f"forced run ({loop} loop): launches "
-                                 f"{dict(kernels.launches)}")
-        log(f"main path (iii) with forced bails, {loop} loop: "
-            f"{st_f['n_perread']} reads re-mapped on the per-read path, "
-            f"{st_f['n_device']} kept on the device, GAF bytes equal to the "
-            f"host-only run")
-        log(run_line(f"run (iii) forced bails, {loop} loop", st_f, n_reads))
+    # native file loop (phase 7 (c): the Python reader loop)
+    kernels.reset_launches()
+    forced_gaf, st_f = forced_bail_run(gi, mo, reads_fa, 40)
+    if forced_gaf != host_gaf:
+        raise AssertionError(f"GAF with forced per-read fallbacks differs "
+                             f"at line {first_diff(forced_gaf, host_gaf)}")
+    if st_f["n_perread"] <= 0:
+        raise AssertionError("the forced run took no read off the batch")
+    if kernels.launches["backtrack"] != st_f["n_batches"]:
+        raise AssertionError(f"forced run: launches "
+                             f"{dict(kernels.launches)}")
+    log(f"main path (iii) with forced bails, native loop: "
+        f"{st_f['n_perread']} reads re-mapped on the per-read path, "
+        f"{st_f['n_device']} kept on the device, GAF bytes equal to the "
+        f"host-only run")
+    log(run_line("run (iii) forced bails, native loop", st_f, n_reads))
 
     # (iv) map_files(device="cuda"), the split as it starts (share 0.35):
     # (a) arena batches of ~1/20 of the small file's bases (~57 reads, far
@@ -1041,6 +1189,10 @@ def main() -> int:
 
     # ---- 6. banded gap scores
     wfa_launches, k7 = wfa_phase(ref, kernels, reps=5)
+
+    # ---- 7. the rest of the command line: asm, sr, the Python loop
+    cli_phase(ref, gfa, work, kernels, k1_asm)
+    forced_python_run(gi, mo, reads_fa, host_gaf, n_reads, kernels)
 
     entries = [
         dict(name="sketch", route="cuda",

@@ -1,11 +1,35 @@
-"""Command line for the port's read mapping (main.c:96-301 subset).
+"""Command line for the port's read mapping (main.c:96-301, without
+base-level alignment and graph generation).
 
     python -m minigraph_tpu_torch [options] <target.gfa> <query.fa> [...]
 
-Options: -x lr (preset), -k INT, -w INT, -t INT (host threads),
--K NUM (mini-batch bases), --device {cuda,cpu,none} (default cuda:
-seed and chain stages on the card; cpu runs their plain versions; none
-maps every read on the native host path).
+Options, as minigraph's:
+  -x STR   preset: lr (default), asm, sr, se, ggs (only with --ggen=none)
+  -k INT -w INT          k-mer size and minimizer window
+  -t INT                 host threads
+  -f FLOAT -U INT[,INT]  occurrence thresholds
+  -g NUM -F NUM -r NUM[,NUM] -n INT[,INT] -m INT[,INT]  chaining gaps,
+                         fragment length, bandwidths, minimum counts and
+                         scores
+  -K NUM -p FLOAT -N INT -M FLOAT -j FLOAT  mini-batch size, secondary
+                         ratio, secondary count, mask level, divergence
+  -P -D -S               all chains, skip self-diagonal hits, write
+                         linear chains
+  -o FILE                output file
+  --vc --secondary=yes|no --heap-sort=yes|no --show-unmap=yes|no
+  --rmq[=yes|no] --no-comp-path --frag --gap-pen FLOAT --ref-bonus INT
+  --max-gap-pre NUM --max-lc-skip INT --max-gc-skip INT
+  --max-lc-iter NUM --max-rmq-size NUM --gdp-max-ed NUM
+  --cap-calloc NUM --min-cov-blen NUM --min-cov-mapq INT --version
+  --device cuda|cpu|none  where the seed (and chain) stages run: cuda
+                         (default) on the card, cpu their plain versions,
+                         none every read on the native host path.
+
+Refused with a message (exit 1) until the port has their stages: -c,
+--call, --cov, graph generation (--ggen other than --ggen=none, -x ggs
+without it, --gg-*, --ins-qovlp, --inv, -l, -d, -q, -L), --seed-device,
+--gwfa-device, --tpu, --write-mz and the --dbg-* and --no-kalloc
+dumps.
 """
 from __future__ import annotations
 
@@ -16,11 +40,45 @@ from typing import List, Optional
 from . import MG_VERSION_COMPAT
 from .graph.gfa_io import read_gfa
 from .mapping.mapper import map_files
-from .options import IndexOptions, MapOptions, opt_set
+from .options import (MG_M_ALL_CHAINS, MG_M_FRAG_MERGE, MG_M_FRAG_MODE,
+                      MG_M_HEAP_SORT, MG_M_NO_COMP_PATH, MG_M_NO_DIAG,
+                      MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
+                      MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN, GGOptions,
+                      IndexOptions, MapOptions, opt_check, opt_set)
 from .utils.syslog import final_log, mlog
 
-USAGE = ("Usage: python -m minigraph_tpu_torch [-x lr] [-k INT] [-w INT] "
-         "[-t INT] [-K NUM] [--device cuda|cpu|none] <target.gfa> "
+_SHORT = "x:k:w:t:r:m:n:g:K:o:p:N:Pq:d:l:f:U:M:F:j:L:DSc"
+_LONG = [
+    "version", "vc", "secondary=", "ins-qovlp=", "heap-sort=", "show-unmap=",
+    "ggen", "ggen-arg=", "rmq", "rmq-arg=", "gg-min-end-cnt=",
+    "gg-min-end-frac=",
+    "no-comp-path", "gg-match-pen=", "frag", "cov", "min-cov-blen=",
+    "min-cov-mapq=", "gap-pen=", "ref-bonus=", "max-gap-pre=", "max-lc-skip=",
+    "max-gc-skip=", "max-lc-iter=", "max-rmq-size=", "inv=", "write-mz",
+    "call", "cap-calloc=", "gdp-max-ed=", "dbg-seed",
+    "dbg-lchain", "dbg-gc1", "dbg-shortk", "dbg-qname", "dbg-insert",
+    "dbg-lc-prof", "dbg-mwf-long", "dbg-mwf-seq", "no-kalloc", "tpu",
+    "gwfa-device", "seed-device", "device=",
+]
+# options of stages the port does not have yet
+_REFUSED = {
+    "-c": "base-level alignment", "--call": "bubble calling",
+    "--cov": "coverage", "--write-mz": "minimizer dumps",
+    "--seed-device": "the device long-query sketch",
+    "--gwfa-device": "the device GWFA",
+    "--tpu": "the TPU (use --device)",
+    "--no-kalloc": "debug output",
+    "--ins-qovlp": "graph generation", "--inv": "graph generation",
+    "--gg-min-end-cnt": "graph generation",
+    "--gg-min-end-frac": "graph generation",
+    "--gg-match-pen": "graph generation", "-l": "graph generation",
+    "-d": "graph generation", "-q": "graph generation",
+    "-L": "graph generation",
+}
+# options whose argument is optional (--rmq, --rmq=no): getopt has no
+# such kind, so the attached form is renamed before it parses
+_OPTIONAL_ARG = ("--rmq", "--ggen")
+USAGE = ("Usage: python -m minigraph_tpu_torch [options] <target.gfa> "
          "<query.fa> [...]\n")
 
 
@@ -33,41 +91,172 @@ def _parse_num(s: str) -> int:
     return int(float(t) * mult + 0.499)
 
 
+def _parse_num2(s: str):
+    """A[,B] -> (A, B or None)."""
+    if "," in s:
+        a, b = s.split(",", 1)
+        return _parse_num(a), _parse_num(b)
+    return _parse_num(s), None
+
+
+def _yes_no(flag: int, bit: int, arg: str) -> int:
+    yes = arg in ("yes", "y")
+    no = arg in ("no", "n")
+    if not yes and not no:
+        sys.stderr.write("[WARNING] option only accepts 'yes' or 'no'.\n")
+        return flag
+    return flag | bit if yes else flag & ~bit
+
+
+def _split_optional(argv: List[str]) -> List[str]:
+    """--rmq=V -> --rmq-arg=V (likewise --ggen), up to a lone --."""
+    out = []
+    for i, a in enumerate(argv):
+        if a == "--":
+            return out + argv[i:]
+        name, eq, val = a.partition("=")
+        out.append(f"{name}-arg={val}" if eq and name in _OPTIONAL_ARG
+                   else a)
+    return out
+
+
+def _refuse(opt: str, what: str) -> int:
+    sys.stderr.write(f"[ERROR] option '{opt}' ({what}) is not supported "
+                     "by the port yet\n")
+    return 1
+
+
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
-    io_, mo = IndexOptions(), MapOptions()
+    io_, mo, go = IndexOptions(), MapOptions(), GGOptions()
     try:
-        opts, args = getopt.gnu_getopt(argv, "x:k:w:t:K:", ["device="])
+        opts, args = getopt.gnu_getopt(_split_optional(argv), _SHORT,
+                                       _LONG)
     except getopt.GetoptError as e:
         sys.stderr.write(f"[ERROR] {e}\n")
         return 1
+    # first pass: presets
     for k, v in opts:
-        if k == "-x" and opt_set(v, io_, mo) < 0:
+        if k == "-x" and opt_set(v, io_, mo, go) < 0:
             sys.stderr.write(f"[ERROR] unknown preset '{v}'\n")
             return 1
+    out = sys.stdout
     n_threads = 4
     device = "cuda"
     for k, v in opts:
+        if k in _REFUSED or k.startswith("--dbg-"):
+            return _refuse(k, _REFUSED.get(k, "debug output"))
         if k == "-w":
             io_.w = int(v)
         elif k == "-k":
             io_.k = int(v)
         elif k == "-t":
             n_threads = int(v)
+        elif k == "-f":
+            mo.occ_max1_frac = float(v)
+        elif k == "-g":
+            mo.max_gap = _parse_num(v)
+        elif k == "-F":
+            mo.max_frag_len = _parse_num(v)
         elif k == "-K":
             mo.mini_batch_size = _parse_num(v)
+        elif k == "-p":
+            mo.pri_ratio = float(v)
+        elif k == "-N":
+            mo.best_n = _parse_num(v)
+        elif k == "-P":
+            mo.flag |= MG_M_ALL_CHAINS
+        elif k == "-D":
+            mo.flag |= MG_M_NO_DIAG
+        elif k == "-M":
+            mo.mask_level = float(v)
+        elif k == "-j":
+            mo.div = float(v)
+        elif k == "-S":
+            mo.flag |= MG_M_WRITE_LCHAIN
+        elif k == "-U":
+            mo.occ_max1, b = _parse_num2(v)
+            if b is not None:
+                mo.occ_max1_cap = b
+        elif k == "-r":
+            mo.bw, b = _parse_num2(v)
+            if b is not None:
+                mo.bw_long = b
+        elif k == "-n":
+            mo.min_gc_cnt, b = _parse_num2(v)
+            if b is not None:
+                mo.min_lc_cnt = b
+        elif k == "-m":
+            mo.min_gc_score, b = _parse_num2(v)
+            if b is not None:
+                mo.min_lc_score = b
+        elif k == "-o":
+            if v != "-":
+                out = open(v, "w")
+        elif k == "--version":
+            print(MG_VERSION_COMPAT)
+            return 0
+        elif k == "--vc":
+            mo.flag |= MG_M_VERTEX_COOR
+        elif k == "--secondary":
+            mo.flag = _yes_no(mo.flag, MG_M_PRINT_2ND, v)
+        elif k == "--heap-sort":
+            mo.flag = _yes_no(mo.flag, MG_M_HEAP_SORT, v)
+        elif k == "--show-unmap":
+            mo.flag = _yes_no(mo.flag, MG_M_SHOW_UNMAP, v)
+        elif k in ("--ggen", "--ggen-arg"):
+            if v != "none":
+                return _refuse(f"--ggen={v}" if v else k,
+                               "graph generation")
+            go.algo = 0
+        elif k == "--rmq":
+            mo.flag |= MG_M_RMQ
+        elif k == "--rmq-arg":
+            mo.flag = _yes_no(mo.flag, MG_M_RMQ, v)
+        elif k == "--no-comp-path":
+            mo.flag |= MG_M_NO_COMP_PATH
+        elif k == "--frag":
+            mo.flag |= MG_M_FRAG_MODE | MG_M_FRAG_MERGE
+        elif k == "--min-cov-blen":
+            mo.min_cov_blen = _parse_num(v)
+        elif k == "--min-cov-mapq":
+            mo.min_cov_mapq = int(v)
+        elif k == "--gap-pen":
+            mo.chn_pen_gap = float(v)
+        elif k == "--ref-bonus":
+            mo.ref_bonus = int(v)
+        elif k == "--max-gap-pre":
+            mo.max_gap_pre = _parse_num(v)
+        elif k == "--max-lc-skip":
+            mo.max_lc_skip = int(v)
+        elif k == "--max-gc-skip":
+            mo.max_gc_skip = int(v)
+        elif k == "--max-lc-iter":
+            mo.max_lc_iter = _parse_num(v)
+        elif k == "--max-rmq-size":
+            mo.rmq_size_cap = _parse_num(v)
+        elif k == "--cap-calloc":
+            mo.cap_kalloc = _parse_num(v)
+        elif k == "--gdp-max-ed":
+            mo.gdp_max_ed = _parse_num(v)
         elif k == "--device":
             if v not in ("cuda", "cpu", "none"):
                 sys.stderr.write(f"[ERROR] unknown device '{v}'\n")
                 return 1
             device = None if v == "none" else v
-    if len(args) < 2:
+    if go.algo != 0:
+        return _refuse("-x ggs", "graph generation; add --ggen=none to map")
+    if opt_check(io_, mo, go) < 0:
+        return 1
+    if not args:
         sys.stderr.write(USAGE)
         return 1
     g = read_gfa(args[0])
     mlog("main", f'loaded the graph from "{args[0]}"')
-    ret = map_files(g, args[1:], io_, mo, out=sys.stdout,
-                    n_threads=n_threads, device=device)
+    ret = map_files(g, args[1:], io_, mo, out=out, n_threads=n_threads,
+                    device=device)
+    if out is not sys.stdout:
+        out.close()
     final_log(MG_VERSION_COMPAT, ["minigraph_tpu_torch"] + argv)
     return 1 if ret else 0
 

@@ -19,6 +19,13 @@ exactly carry a flag (sketch tie overflow, qcap/acap overflow,
 occurrence-cap truncation, duplicate x, unsure chain or backtrack) and
 take the host path, so the output is byte-identical either way.
 
+When the chain parameters depend on the read or the chain is not the
+banded DP (--rmq and asm, -F, sr; `chain_enabled` False), the front is
+a seed-only front: it runs stages 1, 2 and 5 only and hands each read's
+raw anchors, rep_len, minimizer positions and minimizer count to the
+native tail, which chains them itself (mode 1 or 2) and skips its own
+collect.
+
 The kernel path is chosen by the device of the tensors: the front runs
 on the device it is given, and the ops wrappers launch the CUDA kernels
 for tensors on the card and their plain versions for tensors on the CPU.
@@ -53,13 +60,17 @@ UCAP = 64
 DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
     (2048, 256), (8192, 128), (32768, 128))
 STAGES = ("sketch", "collect", "chain", "backtrack", "pack")
+SEED_STAGES = ("sketch", "collect", "pack")
 
 
 @dataclass
 class FrontResult:
-    """Per-read device output, host-array form: the compacted chain
-    anchors (ax/ay, forward order, chains in first-anchor-x order) and
-    u = sc<<32|cnt per chain, exactly mgt_lchain_finish's outputs."""
+    """Per-read device output, host-array form.  With the chain on: the
+    compacted chain anchors (ax/ay, forward order, chains in
+    first-anchor-x order) and u = sc<<32|cnt per chain, exactly
+    mgt_lchain_finish's outputs.  From a seed-only front: the raw
+    anchors sorted by x, as the native collect returns them, and u
+    None."""
     ax: np.ndarray        # (n,) uint64
     ay: np.ndarray
     rep_len: int
@@ -105,9 +116,9 @@ class _StageTimer:
     """Per-stage device time: CUDA events on the card (read back after
     the batch's fetch has synchronised), a host clock on the CPU."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, stages=STAGES):
         self.cuda = device.type == "cuda"
-        self.ms = {s: 0.0 for s in STAGES}
+        self.ms = {s: 0.0 for s in stages}
         self._pending = []
 
     def mark(self):
@@ -148,8 +159,12 @@ class DeviceFront:
         self.opt = opt
         occ_cap = 16          # hit slots per minimizer in the flat join
         # probe backend: the flat join suits indexes below ~1e5 distinct
-        # minimizers; above that the K-independent cuckoo hash runs
-        if len(gi.keys) > 100_000:
+        # minimizers; above that the K-independent cuckoo hash runs.  The
+        # flat join holds keys below 2^36 (k <= 18), so wider keys (asm,
+        # sr) take the hash join at any size; the JAX front has no join
+        # for them
+        wide = len(gi.keys) and int(np.max(gi.keys)) >= 1 << 36
+        if len(gi.keys) > 100_000 or wide:
             # per-anchor positions come from idx gathers, so occ_cap
             # is free here: cover max_occ and the truncation flag never
             # fires (occ_cap < cnt < max_occ)
@@ -175,8 +190,8 @@ class DeviceFront:
         self._warm = set()
         # the device chain applies when the chain parameters are
         # read-independent (map-algo.c:377-390): no sr/splice/rmq, no
-        # frag-length-dependent ref gap; otherwise every read maps on
-        # the host (eligible() is False)
+        # frag-length-dependent ref gap; otherwise the front is
+        # seed-only and the native tail chains the raw anchors
         self.chain_enabled = (
             not (opt.flag & (MG_M_RMQ | MG_M_SPLICE | MG_M_SR))
             and opt.max_frag_len <= 0)
@@ -189,7 +204,8 @@ class DeviceFront:
         mdy = opt.max_gap
         self.mdx_adj = max(mdx, opt.bw)
         self.mdy_adj = max(mdy, opt.bw)
-        self.timer = _StageTimer(self.device)
+        self.timer = _StageTimer(
+            self.device, STAGES if self.chain_enabled else SEED_STAGES)
 
     # ------------------------------------------------------------------
     def caps(self, pad_len: int):
@@ -242,6 +258,14 @@ class DeviceFront:
         q_cnt = torch.clamp(res["q_cnt"], 0, 255)
         t2 = tm.mark()
         tm.add("collect", t1, t2)
+        if not self.chain_enabled:
+            # seed-only: the raw anchor planes go to the host
+            full = {k: res[k] for k in ("axh", "axl", "ayh", "ayl")}
+            full.update(q_cnt=q_cnt, q_meta=res["q_meta"])
+            head = {"n_a": res["n_a"], "n_q": res["n_q"],
+                    "overflow": overflow}
+            return self._pack(head, full, res["n_a"], res["n_q"],
+                              max_occ, bsz, acap, qcap, t2)
         # the chunked chain drops the max_ii candidate, exact only while
         # the iteration clamp clears the buffer (the JAX front's guards)
         chain = lchain_dp_chunked if (
@@ -268,9 +292,14 @@ class DeviceFront:
                 "n_u": bt["n_u"], "q_cnt": q_cnt, "q_meta": res["q_meta"]}
         head = {"n_a": bt["n_v"], "n_q": res["n_q"], "overflow": overflow,
                 "sure": sure}
-        head.update(self._pack_body(full, bt["n_v"], res["n_q"], max_occ,
-                                    bsz, acap, qcap))
-        # one buffer, one copy: every leaf as int64 words
+        return self._pack(head, full, bt["n_v"], res["n_q"], max_occ, bsz,
+                          acap, qcap, t4)
+
+    def _pack(self, head, full, n_a, n_q, max_occ, bsz, acap, qcap, t0):
+        """Stage 5: the flat planes, then one buffer for one copy (every
+        leaf as int64 words).  Returns (buffer, layout, padded planes)."""
+        head.update(self._pack_body(full, n_a, n_q, max_occ, bsz, acap,
+                                    qcap))
         layout = []
         parts = []
         for key in sorted(head):
@@ -278,19 +307,19 @@ class DeviceFront:
             layout.append((key, tuple(v.shape), v.dtype))
             parts.append(v.reshape(-1).to(torch.int64))
         buf = torch.cat(parts)
-        t5 = tm.mark()
-        tm.add("pack", t4, t5)
+        self.timer.add("pack", t0, self.timer.mark())
         return buf, layout, full
 
     @staticmethod
     def _pack_body(full, n_a, n_q, max_occ, B, acap, qcap):
-        """Dense packing of the live chain anchors of all reads into flat
-        planes of half the padded size (pack_body of the JAX front): ay
-        packed to one word occ8|tandem1|span6|qpos17 (span <= 31 by
-        construction, qpos < 2^17 for bucket reads); rep_len and the
-        non-repetitive minimizer positions computed on the device; chain
-        records dense-packed.  A batch fuller than the flat caps sets
-        flat_ovf and is unpacked from the padded planes instead."""
+        """Dense packing of the live anchors of all reads (the chain
+        anchors, or a seed-only front's raw anchors) into flat planes of
+        half the padded size (pack_body of the JAX front): ay packed to
+        one word occ8|tandem1|span6|qpos17 (span <= 31 by construction,
+        qpos < 2^17 for bucket reads); rep_len and the non-repetitive
+        minimizer positions computed on the device; chain records, where
+        there are any, dense-packed.  A batch fuller than the flat caps
+        sets flat_ovf and is unpacked from the padded planes instead."""
         dev = n_a.device
         cap_flat = (B * acap) // 2
         cap_mini = (B * qcap * 3) // 4
@@ -339,27 +368,28 @@ class DeviceFront:
         mrank = torch.cumsum(mini_sel.to(torch.int64), 1) - 1
         midx = torch.where(mini_sel, mprefix[:, None] + mrank,
                            cap_mini).reshape(-1)
-        n_u = full["n_u"].to(torch.int64)
-        ur = torch.arange(UCAP, device=dev)[None, :]
-        uprefix = excl(n_u)
-        uidx = torch.where(ur < n_u[:, None], uprefix[:, None] + ur,
-                           cap_u).reshape(-1)
-        return {"f_axh": flat(full["axh"], cap_flat, idx),
-                "f_axl": flat(full["axl"], cap_flat, idx),
-                "f_ay": flat(ay_pk, cap_flat, idx),
-                "prefix": prefix, "rep_len": rep_len, "n_mini": n_mini,
-                "mprefix": mprefix,
-                "f_mini": flat(qpos.to(I32), cap_mini, midx),
-                "u_sc": flat(full["u_pad_sc"], cap_u, uidx),
-                "u_cnt": flat(full["u_pad_cnt"], cap_u, uidx),
-                "n_u": n_u, "uprefix": uprefix,
-                "flat_ovf": (n_a.sum() > cap_flat)
-                | (n_mini.sum() > cap_mini) | (n_u.sum() > cap_u)}
+        out = {"f_axh": flat(full["axh"], cap_flat, idx),
+               "f_axl": flat(full["axl"], cap_flat, idx),
+               "f_ay": flat(ay_pk, cap_flat, idx),
+               "prefix": prefix, "rep_len": rep_len, "n_mini": n_mini,
+               "mprefix": mprefix,
+               "f_mini": flat(qpos.to(I32), cap_mini, midx),
+               "flat_ovf": (n_a.sum() > cap_flat)
+               | (n_mini.sum() > cap_mini)}
+        if "n_u" in full:
+            n_u = full["n_u"].to(torch.int64)
+            ur = torch.arange(UCAP, device=dev)[None, :]
+            uprefix = excl(n_u)
+            uidx = torch.where(ur < n_u[:, None], uprefix[:, None] + ur,
+                               cap_u).reshape(-1)
+            out.update(u_sc=flat(full["u_pad_sc"], cap_u, uidx),
+                       u_cnt=flat(full["u_pad_cnt"], cap_u, uidx),
+                       n_u=n_u, uprefix=uprefix)
+            out["flat_ovf"] = out["flat_ovf"] | (n_u.sum() > cap_u)
+        return out
 
     # ------------------------------------------------------------------
     def eligible(self, opt: MapOptions, n_segs: int, qlen_sum: int) -> bool:
-        if not self.chain_enabled:
-            return False
         if n_segs != 1 or qlen_sum == 0 or qlen_sum > self.max_len:
             return False
         if opt.flag & (MG_M_HEAP_SORT | MG_M_NO_DIAG):
@@ -424,17 +454,19 @@ class DeviceFront:
 
     def gather_flat(self, handle):
         """Batch-array results: (flat, extra), where flat is a list of
-        (positions-in-submit-order, blob of batch arrays) for reads the
-        device mapped, and extra maps positions to FrontResult-or-None
-        for chunks that overflowed the flat planes.  Reads absent from
-        both, or None in extra, take the host path."""
+        (positions-in-submit-order, blob of batch arrays) for reads whose
+        compacted chains the device delivered, and extra maps positions
+        to FrontResult-or-None for the chunks that do not go flat: a
+        chunk that overflowed the flat planes, and every chunk of a
+        seed-only front (its raw anchors go per read).  Reads absent
+        from both, or None in extra, take the host path."""
         n_seqs, pending = handle
         flat = []
         extra = {}
         for entry in pending:
             chunk, res = self._fetch(entry)
-            if res["flat_ovf"]:
-                for ri, fr in zip(chunk, self._padded_results(chunk, res)):
+            if res["flat_ovf"] or not self.chain_enabled:
+                for ri, fr in zip(chunk, self._chunk_results(chunk, res)):
                     extra[ri] = fr
                 continue
             nb = len(chunk)
@@ -479,34 +511,58 @@ class DeviceFront:
                     n_mv=int(blob["n_q"][j]), u=blob["U"][u0: u0 + nu])
         return out
 
-    def _padded_results(self, chunk, res):
-        """Per-read FrontResults from the padded planes (a batch that
-        overflowed the flat planes)."""
+    def _chunk_results(self, chunk, res):
+        """Per-read FrontResults of one fetched chunk, from the flat
+        planes or, for a chunk that overflowed them, the padded ones."""
         out: List[Optional[FrontResult]] = [None] * len(chunk)
-        AX = (res["axh"].astype(U64) << U64(32)) | res["axl"].astype(U64)
-        AH = res["ayh"].astype(U64)
-        # device ayh = occ<<24|tandem<<10|span; host layout =
-        # occ<<56|tandem<<42|span<<32 | qpos
-        AY = ((AH >> U64(24)) << U64(56)) \
-            | (((AH >> U64(10)) & U64(1)) << U64(42)) \
-            | ((AH & U64(0x3FF)) << U64(32)) | res["ayl"].astype(U64)
-        U_pad = (res["u_pad_sc"].astype(U64) << U64(32)) \
-            | (res["u_pad_cnt"].astype(U64) & U64(0xFFFFFFFF))
+        padded = bool(res["flat_ovf"])
+        chains = self.chain_enabled
+        if padded:
+            AX = (res["axh"].astype(U64) << U64(32)) \
+                | res["axl"].astype(U64)
+            AH = res["ayh"].astype(U64)
+            # device ayh = occ<<24|tandem<<10|span; host layout =
+            # occ<<56|tandem<<42|span<<32 | qpos
+            AY = ((AH >> U64(24)) << U64(56)) \
+                | (((AH >> U64(10)) & U64(1)) << U64(42)) \
+                | ((AH & U64(0x3FF)) << U64(32)) | res["ayl"].astype(U64)
+            if chains:
+                U = (res["u_pad_sc"].astype(U64) << U64(32)) \
+                    | (res["u_pad_cnt"].astype(U64) & U64(0xFFFFFFFF))
+        else:
+            AX = (res["f_axh"].astype(U64) << U64(32)) \
+                | res["f_axl"].astype(U64)
+            AY = _unpack_ay(res["f_ay"])
+            MINI = res["f_mini"].astype(np.int64)
+            if chains:
+                U = (res["u_sc"].astype(U64) << U64(32)) \
+                    | (res["u_cnt"].astype(U64) & U64(0xFFFFFFFF))
         for bi in range(len(chunk)):
             if res["overflow"][bi]:
                 self.n_fallback += 1
                 continue
-            if not res["sure"][bi]:
+            if chains and not res["sure"][bi]:
                 self.n_chain_unsure += 1
                 continue
             n = int(res["n_a"][bi])
-            rep_len, mini_pos = derive_query_info(
-                res["q_cnt"][bi], res["q_meta"][bi], int(res["n_q"][bi]),
-                int(self.opt.occ_max1))
-            out[bi] = FrontResult(
-                ax=AX[bi, :n], ay=AY[bi, :n], rep_len=rep_len,
-                mini_pos=mini_pos, n_mv=int(res["n_q"][bi]),
-                u=U_pad[bi, : int(res["n_u"][bi])])
+            n_q = int(res["n_q"][bi])
+            if padded:
+                ax, ay = AX[bi, :n], AY[bi, :n]
+                rep_len, mini_pos = derive_query_info(
+                    res["q_cnt"][bi], res["q_meta"][bi], n_q,
+                    int(self.opt.occ_max1))
+                u = U[bi, : int(res["n_u"][bi])] if chains else None
+            else:
+                p0, m0 = int(res["prefix"][bi]), int(res["mprefix"][bi])
+                ax, ay = AX[p0: p0 + n], AY[p0: p0 + n]
+                rep_len = int(res["rep_len"][bi])
+                mini_pos = MINI[m0: m0 + int(res["n_mini"][bi])]
+                u = None
+                if chains:
+                    u0 = int(res["uprefix"][bi])
+                    u = U[u0: u0 + int(res["n_u"][bi])]
+            out[bi] = FrontResult(ax=ax, ay=ay, rep_len=rep_len,
+                                  mini_pos=mini_pos, n_mv=n_q, u=u)
             self.n_device += 1
         return out
 

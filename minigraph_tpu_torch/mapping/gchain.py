@@ -23,7 +23,7 @@ import numpy as np
 from ..align.gwfa import gwfa_bridge
 from ..graph.shortk import PathDst, shortest_k
 from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
-                       MG_MAX_SHORT_K)
+                       MG_M_SPLICE, MG_M_SR, MG_MAX_SHORT_K)
 from ..utils.hashes import kh_hash_uint32, mg_log2
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
@@ -980,16 +980,17 @@ def _select_native(lib, n_gc: int, sc, sel_args) -> int:
         sel_tab[2].ctypes.data, sel_tab[3].ctypes.data)
 
 
-def map_tail_full(g, es, ax, ay, mini_pos, opt, qlen: int, n_segs: int,
-                  max_dist_x: int, max_dist_y: int, chn_pen_gap: float,
-                  chn_pen_skip: float, hash_: int, qseq: str, select,
-                  emit=None):
+def map_tail_full(g, es, mode: int, chains_u, ax, ay, mini_pos, opt,
+                  qlen: int, n_segs: int, max_dist_x: int, max_dist_y: int,
+                  chn_pen_gap: float, chn_pen_skip: float, hash_: int,
+                  qseq: str, select, emit=None):
     """The WHOLE per-read tail in one native call (native/mgt_tail.c
-    mgt_map_tail, mode 1): banded linear chain + long-join rescue +
-    lchain tail + graph-chain stage + selection (+ GAF text with
-    `emit`).  Returns a GChains, or None for the decomposed path when
-    the engine bails (status -1 alloc, -2 output caps, -3 bridge
-    warning or reference assert)."""
+    mgt_map_tail): linear chain (mode 1 banded DP, mode 2 RMQ; mode 3
+    takes the device front's compacted chains `chains_u`, ax/ay their
+    anchors, and skips it) + long-join rescue + lchain tail +
+    graph-chain stage + selection (+ GAF text with `emit`).  Returns a GChains, or None for the
+    decomposed path when the engine bails (status -1 alloc, -2 output
+    caps, -3 bridge warning or reference assert)."""
     global _mt_cfg
     lib = get_lib()
     if not _mt_cfg:
@@ -1015,8 +1016,10 @@ def map_tail_full(g, es, ax, ay, mini_pos, opt, qlen: int, n_segs: int,
     args0 = _get_gfull_ctx(g, es)
     qb = qseq.encode("latin-1")
     mini_pos = np.ascontiguousarray(mini_pos, dtype=np.int64)
-    # the port admits no splice/sr options (mapper.py SUPPORTED_FLAGS)
-    do_rescue = int(opt.bw_long > opt.bw and n_segs == 1)
+    # the port refuses splice (mapper.py _check_options): is_cdna is 0
+    do_rescue = int(opt.bw_long > opt.bw
+                    and not (opt.flag & (MG_M_SPLICE | MG_M_SR))
+                    and n_segs == 1)
     llc_cap = n_a + 1024
     sc = _get_gen_scratch(llc_cap, n_a, max(n_a, 64))
     o_llc, o_ax, o_ay, g_tab = sc[0], sc[1], sc[2], sc[3]
@@ -1024,8 +1027,12 @@ def map_tail_full(g, es, ax, ay, mini_pos, opt, qlen: int, n_segs: int,
     # copies, so the decomposed path after a bail sees the originals
     ax = np.array(ax, dtype=np.uint64)
     ay = np.array(ay, dtype=np.uint64)
+    fp = None
+    if mode == 3:
+        chains_u = np.ascontiguousarray(chains_u, dtype=np.uint64)
+        fp = chains_u.ctypes.data
     n_gc = lib.mgt_map_tail(
-        1, None, None,
+        mode, fp, None,
         max_dist_x, max_dist_y, opt.bw, opt.max_lc_skip,
         opt.max_lc_iter, opt.min_lc_cnt, opt.min_lc_score,
         chn_pen_gap, chn_pen_skip,

@@ -1,28 +1,38 @@
 """Read mapping for the port: the per-read path (mg_map_frag,
-map-algo.c:340-502) and the file-level loop (mg_map_files,
-gmap.c:163-211).
+map-algo.c:340-502) and the file-level loops (mg_map_files,
+gmap.c:66-211).
 
-`map_files` indexes the graph once, then maps each query file.  A file
-the native reader opens goes through `_map_file_native`, the JAX
-package's all-native loop: C reader arenas with a one-batch read-ahead
-thread, and, with a device front, the adaptive host/device split.  In
-the open split each arena batch sends a share of its eligible reads to
-the device front and maps the rest in one native host call (host
-collect), then finishes the previous batch's device share (its chains
-through the native tail), so the device works on batch k while the host
-finishes batch k-1.  The host share follows the measured per-read costs
-so that both finish together; when the device does not pay, the split
-collapses to the host with a device probe every few batches.  A file
-the native reader cannot open (stdin) goes through `map_batch`, a plain
-batch loop.  A read whose native tail bails (status != 0) is mapped
-again from its sequence on the exact per-read path (`map_frag`) and
-written with `write_gaf`.  With device=None every read takes the native
+`map_files` indexes the graph once, then maps each query file, or with
+fragments (sr, --frag) a group of files read in step (mates side by
+side).  A single file the native reader opens goes through
+`_map_file_native`, the JAX package's all-native loop: C reader arenas
+with a one-batch read-ahead thread, and, with a device front, the
+adaptive host/device split.  In the open split each arena batch sends a
+share of its eligible reads to the device front and maps the rest in
+one native host call (host collect), then finishes the previous batch's
+device share (its chains or anchors through the native tail), so the
+device works on batch k while the host finishes batch k-1.  The host
+share follows the measured per-read costs so that both finish together;
+when the device does not pay, the split collapses to the host with a
+device probe every few batches.  In frag mode the loop groups mates in
+C, applies the pair orientation in place on the arena and maps each
+pair as one batch item.
+
+Everything else (stdin, paired files, the output shapes the native
+batch cannot serialize: --vc, -S; -D) goes through `_map_file_frag`,
+the JAX package's Python reader loop: it reads and submits batch k+1
+before it finishes batch k, maps a share of the eligible reads on the
+host in a background thread, and maps fragments and what the native
+batch cannot take on the per-read path.  A read whose native tail bails
+(status != 0) is mapped again on the exact per-read path (`map_frag`)
+and written with `write_gaf`.  With device=None every read takes the
 host path; that run is the byte reference the device runs are held
 against, whatever share the controller picks.
 """
 from __future__ import annotations
 
 import copy
+import ctypes as ct
 import sys
 import time
 from typing import List, Optional
@@ -30,27 +40,46 @@ from typing import List, Optional
 import numpy as np
 import torch
 
-from ..graph.gfa import Graph
-from ..index.midx import build_index
-from ..index.midx import MinimizerIndex
-from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
+from ..graph.gfa import Graph, revcomp
+from ..index.midx import MinimizerIndex, build_index
+from ..options import (MG_M_CAL_COV, MG_M_CIGAR, MG_M_FRAG_MERGE,
+                       MG_M_FRAG_MODE, MG_M_HEAP_SORT, MG_M_INDEPEND_SEG,
+                       MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE, MG_M_SR,
+                       MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN, MG_M_WRITE_MZ,
                        MG_MAX_SEG, IndexOptions, MapOptions)
-from ..seqio.bseq import BSeqFile, NativeSeqReader
+from ..seqio.bseq import BSeqFile, NativeSeqReader, qname_same, toupper
 from ..seqio.gaf import write_gaf
 from ..utils.hashes import kh_hash_str, kh_hash_uint32
 from ..utils.ksort import radix_argsort
+from ..utils.native import get_lib
 from . import gchain, lchain
 from .lchain import _i32
 from .filters import apply_chain_filters
 from .native_tail import chain_penalties, map_batch_native
-from .seeds import collect_minimizers, collect_native, collect_seed_hits
+from .seeds import (collect_minimizers, collect_native, collect_seed_hits,
+                    collect_seed_hits_heap)
 from .select import (gchain_drop_flt, gchain_flt_sub, gchain_set_mapq,
                      gchain_set_parent)
 
-# output flags the native GAF formatter handles; the port maps
-# single-segment reads to GAF without base-level alignment (no -c)
-SUPPORTED_FLAGS = MG_M_PRINT_2ND | MG_M_NO_COMP_PATH | MG_M_SHOW_UNMAP
 U32 = 0xFFFFFFFF
+# options whose stages the port does not have yet: base-level alignment
+# (-c), coverage (--cov), minimizer dumps (--write-mz), spliced chains
+UNSUPPORTED_FLAGS = MG_M_CIGAR | MG_M_CAL_COV | MG_M_WRITE_MZ | MG_M_SPLICE
+# output shapes the native GAF formatter of the per-read tail does not
+# write: such reads are serialized by seqio/gaf.py
+_EMIT_BAIL_FLAGS = (MG_M_FRAG_MODE | MG_M_FRAG_MERGE | MG_M_WRITE_LCHAIN
+                    | MG_M_VERTEX_COOR)
+# the native batch writes merged pairs too; these shapes still bail
+_EMIT_BAIL_BATCH = MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR
+
+
+def _batch_mode_ok(flag: int) -> bool:
+    """Flag shapes the native batch tail can serialize."""
+    if flag & _EMIT_BAIL_BATCH:
+        return False
+    if (flag & MG_M_FRAG_MODE) and not (flag & MG_M_FRAG_MERGE):
+        return False
+    return True
 
 
 def resolve_device(device) -> Optional[torch.device]:
@@ -67,20 +96,10 @@ def resolve_device(device) -> Optional[torch.device]:
 
 
 def _check_options(opt: MapOptions) -> None:
-    if opt.flag & ~SUPPORTED_FLAGS:
+    if opt.flag & UNSUPPORTED_FLAGS:
         raise NotImplementedError(
-            f"mapping flags {opt.flag & ~SUPPORTED_FLAGS:#x} are not "
-            "supported by the port")
-    if opt.max_frag_len > 0 or opt.max_gap_ref > 0:
-        raise NotImplementedError("fragment-length gaps are not supported "
-                                  "by the port")
-
-
-def _unmapped(name: str, qlen: int, opt: MapOptions) -> str:
-    """What the reference writes for a read it does not map."""
-    if opt.flag & MG_M_SHOW_UNMAP:
-        return f"{name}\t{qlen}\t0\t0\t*\t*\t0\t0\t0\t0\t0\t0\n"
-    return ""
+            f"mapping flags {opt.flag & UNSUPPORTED_FLAGS:#x} are not "
+            "supported by the port yet")
 
 
 def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
@@ -94,7 +113,7 @@ def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
     if opt.max_qlen > 0 and qlen_sum > opt.max_qlen:
         return None
     res = None
-    if n_segs == 1:
+    if n_segs == 1 and not (opt.flag & (MG_M_HEAP_SORT | MG_M_NO_DIAG)):
         # whole seed stage in one native call (native/mgt_collect.c)
         res = collect_native(gi, opt, opt.occ_max1, seqs[0])
     if res is not None:
@@ -102,8 +121,12 @@ def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
     else:
         mv_x, mv_y = collect_minimizers(gi, qlens, seqs)
         n_mv = len(mv_x)
-        ax, ay, rep_len, mini_pos = collect_seed_hits(
-            gi, opt, opt.occ_max1, mv_x, mv_y)
+        if opt.flag & MG_M_HEAP_SORT:
+            ax, ay, rep_len, mini_pos = collect_seed_hits_heap(
+                gi, opt, opt.occ_max1, mv_x, mv_y)
+        else:
+            ax, ay, rep_len, mini_pos = collect_seed_hits(
+                gi, opt, opt.occ_max1, mv_x, mv_y, qname)
     return map_frag_tail(gi, qlens, seqs, opt, qname, ax, ay, rep_len,
                          mini_pos, n_mv, fast_emit=fast_emit)
 
@@ -111,49 +134,77 @@ def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
 def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                   opt: MapOptions, qname: Optional[str],
                   ax: np.ndarray, ay: np.ndarray, rep_len: int,
-                  mini_pos: np.ndarray, n_mv: int,
+                  mini_pos: np.ndarray, n_mv: int, chains_u=None,
                   fast_emit: bool = False) -> gchain.GChains:
     """Per-read pipeline after seed collection (map-algo.c:377-495).
 
-    The whole tail runs in one native call; each native stage that
-    bails hands the read to the next, more decomposed one."""
+    ax/ay are the read's anchors, or with `chains_u` the device front's
+    compacted chains (u = sc<<32|cnt per chain), which skip the linear
+    chain stage.  The whole tail runs in one native call; each native
+    stage that bails hands the read to the next, more decomposed one."""
     n_segs = len(qlens)
     qlen_sum = sum(qlens)
     hash_ = kh_hash_str(qname) if qname else 0
     hash_ ^= (kh_hash_uint32(qlen_sum & U32) + kh_hash_uint32(opt.seed)) & U32
     hash_ &= U32
     hash_ = kh_hash_uint32(hash_)
-    # the port admits no sr/splice/frag options (SUPPORTED_FLAGS)
-    max_chain_gap_qry = max_chain_gap_ref = opt.max_gap
+    is_splice = bool(opt.flag & MG_M_SPLICE)
+    if opt.flag & MG_M_SR:
+        max_chain_gap_qry = max(qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_qry = opt.max_gap
+    if opt.max_gap_ref > 0:
+        max_chain_gap_ref = opt.max_gap_ref
+    elif opt.max_frag_len > 0:
+        max_chain_gap_ref = max(opt.max_frag_len - qlen_sum, opt.max_gap)
+    else:
+        max_chain_gap_ref = opt.max_gap
     chn_pen_gap, chn_pen_skip = chain_penalties(gi, opt)
     seq_cat = "".join(seqs)
 
     # whole-tail native path (native/mgt_tail.c): linear chain + rescue
     # + lchain tail + graph chain + selection in ONE call
     if len(ax) > 0:
+        if chains_u is not None:
+            mode, mdx, mdy = 3, len(chains_u), 0
+        elif opt.flag & MG_M_RMQ:
+            mode, mdx, mdy = 2, opt.max_gap, 0
+        else:
+            mode, mdx, mdy = 1, max_chain_gap_ref, max_chain_gap_qry
         sel_args = (opt.mask_level, opt.pri_ratio, gi.k * 2,
                     opt.best_n, qlen_sum, n_mv, opt.min_gc_score,
                     rep_len)
-        emit = (qname or "", qlen_sum, opt.flag) \
-            if fast_emit and n_segs == 1 else None
+        emit = None
+        if fast_emit and n_segs == 1 and not (opt.flag & _EMIT_BAIL_FLAGS):
+            emit = (qname or "", qlen_sum, opt.flag)
         gcs = gchain.map_tail_full(
-            gi.g, gi.es, ax, ay, mini_pos, opt, qlen_sum, n_segs,
-            max_chain_gap_ref, max_chain_gap_qry, chn_pen_gap,
-            chn_pen_skip, hash_, seq_cat, sel_args, emit)
+            gi.g, gi.es, mode, chains_u, ax, ay, mini_pos, opt, qlen_sum,
+            n_segs, mdx, mdy, chn_pen_gap, chn_pen_skip, hash_, seq_cat,
+            sel_args, emit)
         if gcs is not None:
             gcs.rep_len = rep_len
             return _map_frag_finish(gi, gcs, opt, qlen_sum, n_mv)
 
-    if len(ax) == 0:
+    if chains_u is not None:
+        # the device's chains: skip the linear chain stage
+        n_lc = len(chains_u)
+        u = np.ascontiguousarray(chains_u, dtype=np.uint64)
+    elif len(ax) == 0:
         n_lc, u = 0, np.empty(0, dtype=np.uint64)
+    elif opt.flag & MG_M_RMQ:
+        ax, ay, n_lc, u = lchain.lchain_rmq(
+            opt.max_gap, opt.max_gap_pre, opt.bw, opt.max_lc_skip,
+            opt.rmq_size_cap, opt.min_lc_cnt, opt.min_lc_score,
+            chn_pen_gap, chn_pen_skip, ax, ay)
     else:
         ax, ay, n_lc, u = lchain.lchain_dp(
             max_chain_gap_ref, max_chain_gap_qry, opt.bw, opt.max_lc_skip,
             opt.max_lc_iter, opt.min_lc_cnt, opt.min_lc_score,
-            chn_pen_gap, chn_pen_skip, False, n_segs, ax, ay)
+            chn_pen_gap, chn_pen_skip, is_splice, n_segs, ax, ay)
 
     # long-join rescue re-chain (map-algo.c:407-417)
-    if opt.bw_long > opt.bw and n_segs == 1 and n_lc > 1:
+    if opt.bw_long > opt.bw and not (opt.flag & (MG_M_SPLICE | MG_M_SR)) \
+            and n_segs == 1 and n_lc > 1:
         st = _i32(int(ay[0]))
         en = _i32(int(ay[(int(u[0]) & U32) - 1]))
         if qlen_sum - (en - st) > opt.rmq_rescue_size \
@@ -226,53 +277,6 @@ def _map_frag_finish(gi, gcs, opt, qlen_sum, n_mv):
         gchain_drop_flt(gcs)
         gchain_set_mapq(gcs, qlen_sum, n_mv, opt.min_gc_score)
     return gcs
-
-
-def map_batch(gi, opt: MapOptions, recs, n_threads: int, front=None,
-              stats: Optional[dict] = None) -> List[str]:
-    """GAF text of each record, in input order.  `stats`, when given,
-    adds the native tail's host time (tail_ms) and counts the reads
-    re-mapped on the per-read path (n_perread)."""
-    n = len(recs)
-    texts: List[Optional[str]] = [None] * n
-    todo = []
-    for i, r in enumerate(recs):
-        ql = len(r.seq)
-        if ql == 0 or (opt.max_qlen > 0 and ql > opt.max_qlen):
-            texts[i] = _unmapped(r.name, ql, opt)
-        else:
-            todo.append(i)
-    dev_idx = [i for i in todo
-               if front is not None and front.eligible(opt, 1,
-                                                       len(recs[i].seq))]
-    frs = front.gather(front.submit([recs[i].seq for i in dev_idx])) \
-        if dev_idx else []
-    on_dev = {i: fr for i, fr in zip(dev_idx, frs) if fr is not None}
-    t0 = time.perf_counter()
-    res = map_batch_native(
-        gi, opt, [(i, recs[i].name, recs[i].seq, on_dev[i]) for i in on_dev],
-        n_threads)
-    res.update(map_batch_native(
-        gi, opt, [(i, recs[i].name, recs[i].seq, None) for i in todo
-                  if i not in on_dev], n_threads, host_collect=True))
-    if stats is not None:
-        stats["tail_ms"] = stats.get("tail_ms", 0.0) \
-            + (time.perf_counter() - t0) * 1e3
-    n_perread = 0
-    for i in todo:
-        if res[i] is None:
-            # the native tail bailed: re-map the read from its sequence
-            # on the exact per-read path (the device's chains are not
-            # reused)
-            r = recs[i]
-            ql = len(r.seq)
-            gcs = map_frag(gi, [ql], [r.seq], opt, r.name, fast_emit=True)
-            res[i] = write_gaf(gi.g, gcs, 1, [ql], r.name, opt.flag)
-            n_perread += 1
-        texts[i] = res[i]
-    if stats is not None:
-        stats["n_perread"] = stats.get("n_perread", 0) + n_perread
-    return texts
 
 
 def _ema(prev, x, alpha=0.4):
@@ -434,7 +438,75 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
     return res
 
 
-def _arena_batches(rdr, max_bp):
+def _map_arena_frags(gi, opt, out, n_threads, n, sq_addr, sq_off, nm_addr,
+                     nm_off, stats):
+    """One frag-mode arena batch through the native batch tail.
+
+    Fragments are runs of same-name records (mates adjacent in the
+    arena), grouped in C; a pair is one batch item spanning both mates
+    with the boundary in seg_mid, and the pair orientation flips
+    (gmap.c:38-43) are applied in place on the arena bytes, so a read
+    that falls to the per-read path sees them too."""
+    lib = get_lib()
+    if not getattr(_map_arena_frags, "_cfg", False):
+        lib.mgt_frag_group.restype = ct.c_int64
+        lib.mgt_frag_group.argtypes = [ct.c_void_p, ct.c_void_p,
+                                       ct.c_int64, ct.c_void_p]
+        lib.mgt_revcomp_spans.restype = None
+        lib.mgt_revcomp_spans.argtypes = [ct.c_void_p, ct.c_void_p,
+                                          ct.c_void_p, ct.c_int64]
+        _map_arena_frags._cfg = True
+    first = np.empty(n + 1, dtype=np.int64)
+    nf = lib.mgt_frag_group(ct.c_void_p(nm_addr),
+                            ct.c_void_p(nm_off.ctypes.data), n,
+                            ct.c_void_p(first.ctypes.data))
+    first = first[:nf + 1]
+    f0 = first[:-1]
+    qso = np.ascontiguousarray(sq_off[first])
+    qno = np.ascontiguousarray(nm_off[first])
+    n_seg = np.ascontiguousarray(np.diff(first))
+    qname_len = np.ascontiguousarray(nm_off[f0 + 1] - nm_off[f0])
+    seg_mid = np.zeros(nf, dtype=np.int64)
+    two = n_seg == 2
+    seg_mid[two] = sq_off[f0[two] + 1]
+    qsum = qso[1:] - qso[:-1]
+    skip = (qsum <= 0) | (n_seg > 2)
+    if opt.max_qlen > 0:
+        skip = skip | (qsum > opt.max_qlen)
+    i2 = f0[two & ~skip]
+    if len(i2):
+        for flip, mate in ((opt.pe_ori >> 1 & 1, 0), (opt.pe_ori & 1, 1)):
+            if flip:
+                st = np.ascontiguousarray(sq_off[i2 + mate])
+                en = np.ascontiguousarray(sq_off[i2 + mate + 1])
+                lib.mgt_revcomp_spans(ct.c_void_p(sq_addr),
+                                      ct.c_void_p(st.ctypes.data),
+                                      ct.c_void_p(en.ctypes.data), len(i2))
+    skipw = np.nonzero(skip)[0]
+    res = _timed_native(stats, gi, opt, None, n_threads,
+                        blob=(nf, sq_addr, qso, nm_addr, qno,
+                              skipw if len(skipw) else None),
+                        frag_blob=(n_seg, seg_mid, qname_len))
+    n_perread = 0
+    for j in range(nf):
+        txt = res.get(j)
+        if txt is None:
+            fj, ns = int(first[j]), int(n_seg[j])
+            name = ct.string_at(nm_addr + int(nm_off[fj]),
+                                int(qname_len[j])).decode("latin-1")
+            seqs = [ct.string_at(sq_addr + int(sq_off[fj + k]),
+                                 int(sq_off[fj + k + 1] - sq_off[fj + k]))
+                    .decode("latin-1") for k in range(ns)]
+            qlens = [len(x) for x in seqs]
+            gcs = map_frag(gi, qlens, seqs, opt, name, fast_emit=True)
+            txt = write_gaf(gi.g, gcs, ns, qlens, name, opt.flag)
+            n_perread += not skip[j]
+        if txt:
+            out.write(txt)
+    _count(stats, "n_perread", n_perread)
+
+
+def _arena_batches(rdr, max_bp, frag_mode=False):
     """One-batch read-ahead over the native reader arenas.
 
     The C reader keeps three arena sets, so a prefetch thread can decode
@@ -454,7 +526,7 @@ def _arena_batches(rdr, max_bp):
             if stop:
                 return
             try:
-                a = rdr.read_batch_arena(max_bp)
+                a = rdr.read_batch_arena(max_bp, frag_mode)
             except Exception as e:          # re-raised on the consumer
                 q.put(("err", e))
                 return
@@ -480,10 +552,11 @@ def _arena_batches(rdr, max_bp):
 
 
 def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
-                     stats=None):
+                     stats=None, frag_mode=False):
     """All-native single-file loop: C reader arenas -> native batch tail
     -> GAF text; Python touches only reads that take the per-read path
-    (engine bails, zero-length, over max_qlen).
+    (engine bails, zero-length, over max_qlen).  In frag mode each arena
+    batch maps as fragments (_map_arena_frags; no device front).
 
     With a device front (front and split given) the loop runs the open
     split until the controller collapses it; collapsed, it maps every
@@ -491,7 +564,6 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
     quarter batch through the device (submitted before the host call, so
     the device runs while the host maps) to keep t_dev fresh; two probes
     in a row with a finish-together target <= 0.45 reopen the split."""
-    import ctypes as ct
 
     def _emit_batch(res, n, rec, bad):
         """Write a batch's results in read order; a None entry (a
@@ -523,8 +595,12 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
         _emit_batch(res_p, st["n"], rec_p, st["bad"])
 
     for n, sq_addr, sq_off, nm_addr, nm_off in _arena_batches(
-            rdr, opt.mini_batch_size):
+            rdr, opt.mini_batch_size, frag_mode):
         _count(stats, "n_arena", 1)
+        if frag_mode:
+            _map_arena_frags(gi, opt, out, n_threads, n, sq_addr, sq_off,
+                             nm_addr, nm_off, stats)
+            continue
         qlen = sq_off[1:] - sq_off[:-1]
         bad = qlen <= 0
         if opt.max_qlen > 0:
@@ -581,8 +657,8 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
             fr_map = {k: fr for k, fr in zip(cand, front.gather(handle))
                       if fr is not None}
             # the probe's reads through the native tail: the front's
-            # chains where it delivered them, the in-worker collect where
-            # it flagged a read
+            # chains or anchors where it delivered them, the in-worker
+            # collect where it flagged a read
             pskip = np.ones(n, dtype=bool)
             pskip[cand] = False
             ptxt = _timed_native(stats, gi, opt, None, n_threads,
@@ -612,10 +688,355 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
     _flush_pending()
 
 
+def _read_batch_frag(fps, chunk_size: int):
+    """Interleaved multi-file reading (mg_bseq_read_frag,
+    bseq.c:100-128): one record of each file in turn."""
+    out = []
+    size = 0
+    while True:
+        recs = []
+        for fp in fps:
+            r = fp._next()
+            if r is not None:
+                recs.append(r)
+        if len(recs) < len(fps):
+            if recs:
+                sys.stderr.write("[W] query files have different number of "
+                                 "records; extra records skipped.\n")
+            break
+        out.extend(recs)
+        size += sum(r.l_seq for r in recs)
+        if size >= chunk_size:
+            break
+    return out
+
+
+def _update_split(split, h_wall, h_cpu, h_n):
+    """The Python loop's share controller after a batch's host share
+    (h_n reads in h_wall s of wall and h_cpu s of CPU time): the host's
+    cost estimates, the blended rate of the batch cycle, then the
+    finish-together share, collapsed while the device does not pay and
+    reopened after two probes in a row say it does."""
+    if h_n:
+        split["t_host"] = _ema(split["t_host"], h_wall / h_n)
+        split["t_host_cpu"] = _ema(split.get("t_host_cpu"), h_cpu / h_n)
+    # blended throughput over the last batch cycle (reads of every path
+    # over the wall since the previous balance point); build-length
+    # cycles are skipped
+    now = time.perf_counter()
+    t_last = split.get("t_last")
+    n_cyc = split.get("n_since", 0)
+    split["t_last"] = now
+    split["n_since"] = 0
+    if (t_last is not None and n_cyc > 0 and not split.get("collapsed")
+            and split["share"] < 1.0):
+        cyc = now - t_last
+        if cyc / n_cyc < 0.05:
+            split["rate_mix"] = _ema(split.get("rate_mix"), n_cyc / cyc)
+            split["nb_mix"] = split.get("nb_mix", 0) + 1
+    if not (split["t_dev"] and split["t_host"]):
+        return
+    # balance: the host takes t_dev / (t_dev + t_host) of the work
+    tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
+    share = 1.0 if tgt > 0.95 else min(0.9, max(0.0, tgt))
+    # a device read costing over 19x a host read twice in a row does
+    # not pay: collapse without waiting for the blended rate
+    split["hi_tgt"] = split.get("hi_tgt", 0) + 1 if tgt > 0.95 else 0
+    if split.get("collapsed"):
+        if tgt <= 0.45:
+            split["reopen"] = split.get("reopen", 0) + 1
+            if split["reopen"] >= 2:
+                split["collapsed"] = False
+                split["rate_mix"] = None
+                split["nb_mix"] = 0
+                split["reopen"] = 0
+            else:
+                share = 1.0
+        else:
+            split["reopen"] = 0
+            share = 1.0
+    elif split["hi_tgt"] >= 2:
+        split["collapsed"] = True
+        share = 1.0
+    elif (share < 1.0 and split.get("rate_mix")
+          and split.get("nb_mix", 0) >= 3 and split.get("t_host_cpu")
+          and 1.0 / split["t_host_cpu"] > 1.08 * split["rate_mix"]):
+        # the blend runs slower than one host thread alone: the host
+        # and the device path's host work contend for the cores
+        split["collapsed"] = True
+        share = 1.0
+    split["share"] = share
+
+
+def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
+                   n_threads: int = 1, front=None, stats=None) -> None:
+    """The read -> map -> write loop of one file, or of a group of
+    files read in step (gmap.c:66-177).
+
+    A single file the native reader opens, whose output the native
+    batch writes, goes to the all-native loop (`_map_file_native`;
+    fragments only without a device front).  The rest is read here: one
+    batch ahead (`_read_prep` submits batch k+1 to the device before
+    batch k's tails run), fragments grouped by name, with a device
+    front an adaptive share of the eligible reads mapped on the host in
+    a background thread (`host_pool`) while the device runs the others;
+    without one, the whole batch in one native host call where the
+    batch can write it.  What neither takes (pairs with a front, the
+    output shapes the batch cannot write, -D) maps on the per-read
+    path, in threads when a front runs and several are asked for."""
+    from concurrent.futures import ThreadPoolExecutor
+
+    frag_mode = len(fns) > 1 or bool(opt.flag & MG_M_FRAG_MODE)
+    split = None
+    if front is not None and not (opt.flag & _EMIT_BAIL_FLAGS):
+        split = getattr(front, "_split_state", None)
+        if split is None:
+            split = {"share": 0.35, "t_host": None, "t_dev": None}
+            front._split_state = split
+    if (len(fns) == 1 and (not frag_mode or front is None)
+            and _batch_mode_ok(opt.flag)
+            and not (opt.flag & (MG_M_INDEPEND_SEG | MG_M_NO_DIAG))
+            and (front is None or split is not None)):
+        try:
+            rdr = NativeSeqReader(fns[0])
+        except OSError:
+            rdr = None
+        if rdr is not None:
+            try:
+                _map_file_native(gi, opt, rdr, out, n_threads, front, split,
+                                 stats, frag_mode)
+            finally:
+                rdr.close()
+            return
+
+    fps = [BSeqFile(fn) for fn in fns]
+    pe_ori = opt.pe_ori
+    split_ok = (front is not None
+                and not (opt.flag & (_EMIT_BAIL_FLAGS | MG_M_HEAP_SORT
+                                     | MG_M_INDEPEND_SEG | MG_M_NO_DIAG)))
+    if not split_ok:
+        split = {"share": 0.35, "t_host": None, "t_dev": None}
+    host_pool = ThreadPoolExecutor(max_workers=1) if split_ok else None
+    host_batch_ok = (front is None and _batch_mode_ok(opt.flag)
+                     and not (opt.flag & (MG_M_INDEPEND_SEG
+                                          | MG_M_NO_DIAG)))
+
+    def _host_batch_timed(items):
+        # the thread's own CPU time (the one-thread native call runs in
+        # this thread) is the host's per-read cost free of contention
+        # with the device path's host work
+        t0 = time.perf_counter()
+        c0 = time.thread_time()
+        txt = map_batch_native(gi, opt, items, 1, host_collect=True)
+        return (txt, time.perf_counter() - t0, time.thread_time() - c0,
+                len(items))
+
+    def _read_prep():
+        """Read, group and submit the next batch: the device launches
+        are asynchronous, so batch k+1 runs on the device while the host
+        finishes batch k (kt_pipeline, gmap.c:66-177)."""
+        if len(fps) > 1:
+            batch = _read_batch_frag(fps, opt.mini_batch_size)
+        else:
+            batch = fps[0].read_batch(opt.mini_batch_size, frag_mode)
+        if not batch:
+            return None
+        for r in batch:
+            r.seq = toupper(r.seq)
+        # fragments: runs of same-name records in frag mode
+        frags = []
+        j = 0
+        for i in range(1, len(batch) + 1):
+            if i == len(batch) or not frag_mode \
+                    or not qname_same(batch[i - 1].name, batch[i].name):
+                frags.append((j, i - j))
+                j = i
+        handle = front_idx = host_fut = None
+        if front is not None:
+            front_idx = [fi for fi, (off, n_seg) in enumerate(frags)
+                         if front.eligible(opt, n_seg, batch[off].l_seq)]
+            if host_pool is not None:
+                # ineligible single-segment reads always take the host
+                # batch; an adaptive share of the eligible ones joins them
+                elig = set(front_idx)
+                host_set = [
+                    fi for fi, (off, n_seg) in enumerate(frags)
+                    if n_seg == 1 and batch[off].l_seq > 0
+                    and fi not in elig
+                    and not (opt.max_qlen > 0
+                             and batch[off].l_seq > opt.max_qlen)]
+                n_steal = int(len(front_idx) * split["share"])
+                if n_steal >= len(front_idx):
+                    # the device does not pay: the host takes all, but
+                    # every _probe_interval-th batch probes a quarter
+                    # batch on the device
+                    split["nb"] = split.get("nb", 0) + 1
+                    probe = max(8, len(front_idx) // 4)
+                    n_steal = max(0, len(front_idx) - probe) \
+                        if split["nb"] % _probe_interval(split) == 0 \
+                        else len(front_idx)
+                if n_steal > 0:
+                    host_set += front_idx[:n_steal]
+                    front_idx = front_idx[n_steal:]
+                if host_set:
+                    _count(stats, "n_share_host", len(host_set))
+                    items = [(fi, batch[frags[fi][0]].name,
+                              batch[frags[fi][0]].seq, None)
+                             for fi in sorted(host_set)]
+                    host_fut = host_pool.submit(_host_batch_timed, items)
+            if front_idx:
+                _count(stats, "n_share_dev", len(front_idx))
+                t_sub0 = time.perf_counter()
+                handle = front.submit(
+                    [batch[frags[fi][0]].seq for fi in front_idx])
+                # the submit's host cost is part of a device read's
+                # price, charged to t_dev at the next gather
+                split["sub_wall"] = split.get("sub_wall", 0.0) \
+                    + time.perf_counter() - t_sub0
+                if front.last_submit_cold:
+                    split["sub_cold"] = True
+        return batch, frags, handle, front_idx, host_fut
+
+    def flip(batch, off):
+        # pair orientation (gmap.c:38-43)
+        if pe_ori >> 1 & 1:
+            batch[off].seq = revcomp(batch[off].seq)
+        if pe_ori & 1:
+            batch[off + 1].seq = revcomp(batch[off + 1].seq)
+
+    try:
+        cur = _read_prep()
+        while cur is not None:
+            batch, frags, handle, front_idx, host_fut = cur
+            cur = _read_prep()  # device and input run ahead of the tails
+            front_res = None
+            t_dev0 = time.perf_counter()
+            if handle is not None:
+                front_res = dict(zip(front_idx, front.gather(handle)))
+            # whole-batch native tails: anchors -> GAF text in one call,
+            # the per-read path only for what it cannot take
+            batch_txt = None
+            flips_done = False
+            if front_res and not (opt.flag & _EMIT_BAIL_FLAGS):
+                items = [(fi, batch[frags[fi][0]].name,
+                          batch[frags[fi][0]].seq, fr)
+                         for fi, fr in front_res.items()
+                         if fr is not None and frags[fi][1] == 1]
+                batch_txt = _timed_native(stats, gi, opt, items, n_threads)
+                if items:
+                    if split.pop("sub_cold", False):
+                        split.pop("sub_wall", None)  # a build, not a cost
+                    else:
+                        split["t_dev"] = _ema(
+                            split["t_dev"],
+                            (split.pop("sub_wall", 0.0)
+                             + time.perf_counter() - t_dev0) / len(items))
+                # reads the front flagged: the native host path
+                flagged = [(fi, batch[frags[fi][0]].name,
+                            batch[frags[fi][0]].seq, None)
+                           for fi, fr in front_res.items() if fr is None]
+                if flagged:
+                    batch_txt.update(_timed_native(
+                        stats, gi, opt, flagged, n_threads,
+                        host_collect=True))
+            elif host_batch_ok:
+                items = []
+                for fi, (off, n_seg) in enumerate(frags):
+                    if n_seg > 2:
+                        continue
+                    qsum = sum(batch[off + k].l_seq for k in range(n_seg))
+                    if qsum == 0 or (opt.max_qlen > 0
+                                     and qsum > opt.max_qlen):
+                        continue
+                    if n_seg == 2:
+                        flip(batch, off)
+                        items.append((fi, batch[off].name,
+                                      (batch[off].seq, batch[off + 1].seq),
+                                      None))
+                    else:
+                        items.append((fi, batch[off].name, batch[off].seq,
+                                      None))
+                flips_done = True
+                if items:
+                    batch_txt = _timed_native(stats, gi, opt, items,
+                                              n_threads, host_collect=True)
+            if split_ok:
+                # reads since the last balance point (a cycle can span
+                # batches that ran without a host share)
+                split["n_since"] = split.get("n_since", 0) + len(frags)
+            if host_fut is not None:
+                h_txt, h_wall, h_cpu, h_n = host_fut.result()
+                _count(stats, "tail_ms", h_wall * 1e3)
+                batch_txt = h_txt if batch_txt is None \
+                    else {**batch_txt, **h_txt}
+                _update_split(split, h_wall, h_cpu, h_n)
+            if batch_txt is not None:
+                _count(stats, "n_perread", sum(
+                    1 for v in batch_txt.values() if v is None))
+
+            def compute_frag(fi, off, n_seg):
+                if not flips_done and n_seg == 2:
+                    flip(batch, off)
+                seqs = [batch[off + k].seq for k in range(n_seg)]
+                qlens = [len(x) for x in seqs]
+                fr = front_res.get(fi) if front_res is not None else None
+                if fr is not None:
+                    gcs_list = [map_frag_tail(
+                        gi, qlens, seqs, opt, batch[off].name, fr.ax,
+                        fr.ay, fr.rep_len, fr.mini_pos, fr.n_mv,
+                        chains_u=fr.u, fast_emit=True)]
+                elif opt.flag & MG_M_INDEPEND_SEG:
+                    gcs_list = [map_frag(gi, [qlens[k]], [seqs[k]], opt,
+                                         batch[off + k].name,
+                                         fast_emit=True)
+                                for k in range(n_seg)]
+                else:
+                    gcs_list = [map_frag(gi, qlens, seqs, opt,
+                                         batch[off].name, fast_emit=True)]
+                return qlens, gcs_list
+
+            def emit_frag(off, n_seg, qlens, gcs_list):
+                if (opt.flag & MG_M_FRAG_MODE) \
+                        and (opt.flag & MG_M_FRAG_MERGE):
+                    out.write(write_gaf(gi.g, gcs_list[0], n_seg, qlens,
+                                        batch[off].name, opt.flag))
+                    return
+                for k in range(n_seg):
+                    t = batch[off + k]
+                    gck = gcs_list[k] if len(gcs_list) > 1 else \
+                        (gcs_list[0] if k == 0 else None)
+                    out.write(write_gaf(gi.g, gck, 1, [t.l_seq], t.name,
+                                        opt.flag))
+
+            todo = [fi for fi in range(len(frags))
+                    if batch_txt is None or batch_txt.get(fi) is None]
+            if front is not None and n_threads > 1 and len(todo) > 1:
+                # the native tails release the GIL, so the per-read path
+                # scales over threads; emission stays in input order
+                with ThreadPoolExecutor(
+                        max_workers=min(n_threads, 16)) as ex:
+                    done = {fi: ex.submit(compute_frag, fi, *frags[fi])
+                            for fi in todo}
+                    done = {fi: f.result() for fi, f in done.items()}
+            else:
+                done = {fi: compute_frag(fi, *frags[fi]) for fi in todo}
+            for fi, (off, n_seg) in enumerate(frags):
+                if fi in done:
+                    emit_frag(off, n_seg, *done[fi])
+                else:
+                    out.write(batch_txt[fi])
+    finally:
+        if host_pool is not None:
+            host_pool.shutdown(wait=True)
+        for fp in fps:
+            fp.close()
+
+
 def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
               out=sys.stdout, n_threads: int = 1, front=None,
               stats: Optional[dict] = None) -> None:
-    """Map each query file against an index (the loop of mg_map_files).
+    """Map each query file against an index (the loop of mg_map_files);
+    in frag mode with several files, the files in step as one group.
 
     front: a DeviceFront on `gi`, or None to map every read on the host.
     The split's learned state lives on the front as front._split_state
@@ -624,54 +1045,36 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     send every eligible read to the device.  That pin holds only while
     every read is eligible: the host measures no cost while it maps no
     eligible read, and the share stays until both costs have been
-    measured; a pinned caller checks stats["n_share_host"] == 0.  `stats`, when given, receives the mapping wall
-    time (map_ms), the native tail's host time (tail_ms), the reads
-    re-mapped on the per-read path (n_perread), the arena batches
-    (n_arena), the reads sent to the device and host shares
-    (n_share_dev, n_share_host), the device probes (n_probes), and with
-    a front the final share, collapsed, and the front's counters and
-    per-stage device times (ms)."""
+    measured; a pinned caller checks stats["n_share_host"] == 0.
+    `stats`, when given, receives the mapping wall time (map_ms), the
+    native tail's host time (tail_ms), the reads whose native tail
+    bailed and were mapped again on the per-read path (n_perread), the
+    native loop's arena batches (n_arena), the reads sent to the device
+    and host shares (n_share_dev, n_share_host), the device probes
+    (n_probes), and with a front the final share and collapsed (where
+    the loop ran a split), the front's counters and per-stage device
+    times (ms)."""
     _check_options(opt)
-    split = None
-    if front is not None:
-        split = getattr(front, "_split_state", None)
-        if split is None:
-            split = {"share": 0.35, "t_host": None, "t_dev": None}
-            front._split_state = split
+    if front is not None and stats is not None:
+        for key in ("n_share_dev", "n_share_host"):
+            stats.setdefault(key, 0)
+    groups = [fns] if (opt.flag & MG_M_FRAG_MODE) and len(fns) > 1 \
+        else [[fn] for fn in fns]
     t0 = time.perf_counter()
-    for fn in fns:
-        try:
-            rdr = NativeSeqReader(fn)
-        except OSError:
-            rdr = None
-        if rdr is not None:
-            try:
-                _map_file_native(gi, opt, rdr, out, n_threads, front,
-                                 split, stats)
-            finally:
-                rdr.close()
-            continue
-        fp = BSeqFile(fn)
-        try:
-            while True:
-                batch = fp.read_batch(opt.mini_batch_size)
-                if not batch:
-                    break
-                out.write("".join(map_batch(gi, opt, batch, n_threads,
-                                            front, stats)))
-        finally:
-            fp.close()
+    for group in groups:
+        _map_file_frag(gi, group, opt, out, n_threads, front, stats)
     if stats is not None:
         stats["map_ms"] = (time.perf_counter() - t0) * 1e3
     if front is not None:
         front.log_stats()
         if stats is not None:
+            split = getattr(front, "_split_state", None) or {}
             stats.update(n_device=front.n_device,
                          n_fallback=front.n_fallback,
                          n_chain_unsure=front.n_chain_unsure,
                          n_flat_ovf=front.n_flat_ovf,
                          n_batches=front.n_batches,
-                         share=split["share"],
+                         share=split.get("share"),
                          collapsed=bool(split.get("collapsed")),
                          stage_ms=dict(front.timer.ms))
 
@@ -681,13 +1084,13 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
               device="cuda", stats: Optional[dict] = None) -> int:
     """Index once, then map each query file (mg_map_files).
 
-    device: "cuda" (default) runs the seed and chain stages of the
-    device share on the card, "cpu" runs the same stages' plain versions
-    on the CPU, None maps every read on the native host path.  The GAF
-    bytes are the same in all three cases: reads the device cannot
-    reproduce exactly are flagged and take the host path.  `stats`,
-    when given, receives the index wall time (index_ms) and what
-    map_reads reports."""
+    device: "cuda" (default) runs the seed (and, where the chain is the
+    banded DP, the chain) stages of the device share on the card, "cpu"
+    runs the same stages' plain versions on the CPU, None maps every
+    read on the native host path.  The GAF bytes are the same in all
+    three cases: reads the device cannot reproduce exactly are flagged
+    and take the host path.  `stats`, when given, receives the index
+    wall time (index_ms) and what map_reads reports."""
     dev = resolve_device(device)
     opt = copy.copy(opt0)
     _check_options(opt)

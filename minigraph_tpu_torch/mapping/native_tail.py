@@ -5,11 +5,12 @@ mode, and blob mode over the native reader's arenas with the fr_map and
 fr_flat hand-offs) and the graph/index context helpers it calls.  One
 call maps a batch of reads in native/mgt_batch.c: a work-stealing
 pthread loop over mgt_map_tail (linear and graph chaining),
-mgt_select_chains and mgt_format_gaf.  A read either arrives with the
-device front's compacted chains (mode 3) or runs the native seed
-collection inside the worker (mgt_collect) and the whole host path
-(mode 1).  The port's front always ships compacted chains, so the
-JAX package's other modes (0: f and p, 2: rmq) are not taken.
+mgt_select_chains and mgt_format_gaf.  A read arrives with the device
+front's compacted chains (mode 3), with its raw anchors from a
+seed-only front, or runs the native seed collection inside the worker
+(mgt_collect); the last two chain in mode 1 (banded DP) or mode 2
+(RMQ).  The JAX package's mode 0 (the front's f and p, backtracked on
+the host) is not taken: no front of either package produces it.
 """
 from __future__ import annotations
 
@@ -17,8 +18,9 @@ import ctypes as ct
 
 import numpy as np
 
-from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
-                       MG_MAX_SHORT_K)
+from ..options import (MG_M_FRAG_MERGE, MG_M_HEAP_SORT, MG_M_NO_COMP_PATH,
+                       MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
+                       MG_M_SPLICE, MG_M_SR, MG_MAX_SHORT_K)
 from ..utils.hashes import expf
 from ..utils.native import get_lib
 
@@ -188,19 +190,18 @@ def _configure(lib):
     _configured = True
 
 
-def _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len,
-                 fpp, mode, mdx, mdy):
-    """Point read k of a native batch at a FrontResult's compacted
-    chains: mode 3, the device-backtracked chains skip the linear-chain
-    stage; fpp carries u, mdx its length (native/mgt_tail.c)."""
-    if fr.u is None:
-        raise ValueError("the native tail takes the front's compacted "
-                         "chains (FrontResult.u)")
+def _fill_front(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len,
+                fpp, mode, mdx, mdy):
+    """Point read k of a native batch at a FrontResult: its anchors
+    (the worker skips its collect, since axp != 0) and, where the front
+    chained and backtracked, its compacted chains (mode 3: the linear
+    chain stage is skipped, fpp carries u and mdx its length,
+    native/mgt_tail.c).  Without u (a seed-only front) the read keeps
+    the chain mode the caller set (1 banded DP, 2 RMQ)."""
     ax = np.ascontiguousarray(fr.ax, dtype=np.uint64)
     ay = np.ascontiguousarray(fr.ay, dtype=np.uint64)
     mp = np.ascontiguousarray(fr.mini_pos, dtype=np.int64)
-    u64 = np.ascontiguousarray(fr.u, dtype=np.uint64)
-    keep.append((ax, ay, mp, u64))
+    keep.append((ax, ay, mp))
     n_a[k] = len(ax)
     axp[k] = ax.ctypes.data
     ayp[k] = ay.ctypes.data
@@ -208,22 +209,33 @@ def _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len,
     n_mv[k] = fr.n_mv
     n_mini[k] = len(mp)
     rep_len[k] = fr.rep_len
-    fpp[k] = u64.ctypes.data
-    mode[k] = 3
-    mdx[k] = len(u64)
-    mdy[k] = 0
+    if fr.u is not None:
+        u64 = np.ascontiguousarray(fr.u, dtype=np.uint64)
+        keep.append(u64)
+        fpp[k] = u64.ctypes.data
+        mode[k] = 3
+        mdx[k] = len(u64)
+        mdy[k] = 0
 
 
 def map_batch_native(gi, opt, items, n_threads: int,
                      host_collect: bool = False, blob=None, fr_map=None,
-                     fr_flat=None) -> dict:
+                     fr_flat=None, frag_blob=None) -> dict:
     """Map a batch of reads to GAF text in one native call.
 
-    items: list of (key, qname, seq, FrontResult-or-None).  Without
-    host_collect every item carries the device front's compacted chains
-    (FrontResult.u set); with host_collect the FrontResult is ignored
-    and the workers run the seed collection too.  Returns {key: text},
-    with None for a read whose native engines bailed (status != 0).
+    items: list of (key, qname, seq, FrontResult-or-None); seq is a
+    string, or a tuple of two strings for a merged pair (the mates
+    concatenated, the boundary handed to the worker).  Without
+    host_collect every item carries a FrontResult of the device front;
+    with host_collect the FrontResult is ignored and the workers run the
+    seed collection too.  Returns {key: text}, with None for a read
+    whose native engines bailed (status != 0).
+
+    Each read chains in one of three modes: 3, the front's compacted
+    chains (no linear chain stage); 2, RMQ (--rmq, asm); 1, the banded
+    DP with the read's own gaps (-F and the sr rule make them depend on
+    its length).  A seed-only front's anchors (FrontResult.u None) chain
+    in mode 1 or 2 like collected ones.
 
     blob = (n, sq_addr, sq_off, nm_addr, nm_off, skip) maps a batch of
     the native reader's arenas instead (items is then ignored and the
@@ -232,22 +244,34 @@ def map_batch_native(gi, opt, items, n_threads: int,
     the device front mapped, whose compacted chains come as batch arrays
     (`fr_flat`, a list of (arena indices, DeviceFront.gather_flat blob))
     or per read (`fr_map`, {arena index: FrontResult}).  A skipped
-    read comes back None."""
+    read comes back None.  frag_blob = (n_seg, seg_mid, qname_len)
+    presents the blob as fragments: the offsets span whole fragments
+    (mates adjacent in the arena), seg_mid is a pair's boundary and
+    qname_len the first mate's name length."""
     lib = get_lib()
     _configure(lib)
     n = len(items) if blob is None else blob[0]
     if n == 0:
         return {}
+    is_sr = bool(opt.flag & MG_M_SR)
+    is_splice = bool(opt.flag & MG_M_SPLICE)
+    is_rmq = bool(opt.flag & MG_M_RMQ)
+    if opt.max_gap_ref > 0:
+        mdx_dp = opt.max_gap_ref
+    elif opt.max_frag_len > 0:
+        mdx_dp = None      # depends on the read's length
+    else:
+        mdx_dp = opt.max_gap
     chn_pen_gap, chn_pen_skip = chain_penalties(gi, opt)
-    # the mapper admits no splice/sr/frag options (mapper.py
-    # SUPPORTED_FLAGS), so the rescue rule reduces to bw_long > bw
-    do_rescue = int(opt.bw_long > opt.bw)
+    do_rescue = int(opt.bw_long > opt.bw
+                    and not (opt.flag & (MG_M_SPLICE | MG_M_SR)))
     gaf_flags = (int(bool(opt.flag & MG_M_PRINT_2ND))
                  | (int(bool(opt.flag & MG_M_NO_COMP_PATH)) << 1)
-                 | (int(bool(opt.flag & MG_M_SHOW_UNMAP)) << 2))
+                 | (int(bool(opt.flag & MG_M_SHOW_UNMAP)) << 2)
+                 | (int(bool(opt.flag & MG_M_FRAG_MERGE)) << 3))
     P = np.array([
         opt.bw, opt.max_lc_skip, opt.max_lc_iter, opt.min_lc_cnt,
-        opt.min_lc_score, 0, opt.max_gap_pre,    # 0: is_splice
+        opt.min_lc_score, int(is_splice), opt.max_gap_pre,
         opt.rmq_size_cap, do_rescue, opt.bw_long, opt.rmq_rescue_size,
         opt.max_gap, opt.lc_max_occ, opt.lc_max_trim, opt.max_gap >> 1,
         opt.max_gc_skip, opt.ref_bonus, MG_MAX_SHORT_K, opt.min_gc_cnt,
@@ -271,14 +295,35 @@ def map_batch_native(gi, opt, items, n_threads: int,
     mdy = np.empty(n, dtype=np.int64)
     qseq_off = np.zeros(n + 1, dtype=np.int64)
     qname_off = np.zeros(n + 1, dtype=np.int64)
+    n_seg_arr = np.ones(n, dtype=np.int64)
+    seg_mid = np.zeros(n, dtype=np.int64)
+    qname_len = None
+    any_frag = False
     keep = []
+    fill = (keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len, fpp, mode,
+            mdx, mdy)
     if blob is not None:
         _, sq_addr, sq_off, nm_addr, nm_off, skip = blob
         qseq_off[:] = sq_off
         qname_off[:] = nm_off
         qlen[:] = qseq_off[1:] - qseq_off[:-1]
-        mode[:] = 1
-        mdx[:] = mdy[:] = opt.max_gap
+        if frag_blob is not None:
+            n_seg_arr, seg_mid, qname_len = frag_blob
+            any_frag = True
+        if is_rmq:
+            mode[:] = 2
+            mdx[:] = opt.max_gap
+            mdy[:] = 0
+        else:
+            mode[:] = 1
+            if mdx_dp is not None:
+                mdx[:] = mdx_dp
+            else:
+                np.maximum(opt.max_frag_len - qlen, opt.max_gap, out=mdx)
+            if is_sr:
+                np.maximum(qlen, opt.max_gap, out=mdy)
+            else:
+                mdy[:] = opt.max_gap
         if skip is not None:
             mode[skip] = -1      # the caller maps these reads itself
         for idxs, fb in fr_flat or ():
@@ -300,23 +345,33 @@ def map_batch_native(gi, opt, items, n_threads: int,
             mdx[idxs] = fb["n_u"]
             mdy[idxs] = 0
         for k, fr in (fr_map or {}).items():
-            _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini,
-                         rep_len, fpp, mode, mdx, mdy)
+            _fill_front(k, fr, *fill)
         qseq_blob = ct.cast(sq_addr, ct.c_char_p)
         qname_blob = ct.cast(nm_addr, ct.c_char_p)
         host_collect = True
     else:
         seq_parts, name_parts = [], []
         for k, (_, qname, seq, fr) in enumerate(items):
+            if isinstance(seq, tuple):
+                # a merged pair: the mates concatenated, the boundary in
+                # seg_mid (the worker collects each segment on its own)
+                n_seg_arr[k] = len(seq)
+                seg_mid[k] = qseq_off[k] + len(seq[0])
+                any_frag = True
+                seq = "".join(seq)
             ql = len(seq)
             qlen[k] = ql
-            if host_collect:
-                # mode 1: the whole linear-chain stage runs in the worker
-                mode[k] = 1
-                mdx[k] = mdy[k] = opt.max_gap
+            if is_rmq:
+                mode[k] = 2
+                mdx[k] = opt.max_gap
+                mdy[k] = 0
             else:
-                _fill_chains(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini,
-                             rep_len, fpp, mode, mdx, mdy)
+                mode[k] = 1
+                mdx[k] = mdx_dp if mdx_dp is not None \
+                    else max(opt.max_frag_len - ql, opt.max_gap)
+                mdy[k] = max(ql, opt.max_gap) if is_sr else opt.max_gap
+            if not host_collect:
+                _fill_front(k, fr, *fill)
             seq_parts.append(seq)
             name_parts.append(qname or "")
             qseq_off[k + 1] = qseq_off[k] + ql
@@ -337,6 +392,9 @@ def map_batch_native(gi, opt, items, n_threads: int,
                     cptr[6], cptr[7])
     else:
         col_args = (0, 0, 0, 0, None, None, None, 0, None, None, 0)
+    frag_args = (int(bool(opt.flag & MG_M_HEAP_SORT)),
+                 n_seg_arr.ctypes.data if any_frag else None,
+                 seg_mid.ctypes.data if any_frag else None)
     total = lib.mgt_map_tail_batch(
         n, max(1, n_threads), P.ctypes.data, PD.ctypes.data,
         mode.ctypes.data, n_a.ctypes.data, axp.ctypes.data,
@@ -345,10 +403,11 @@ def map_batch_native(gi, opt, items, n_threads: int,
         qlen.ctypes.data,
         rep_len.ctypes.data, mdx.ctypes.data, mdy.ctypes.data,
         *col_args,
-        0, None, None,          # no fragments
+        *frag_args,
         0, None,                # no -c
         qseq_blob, qseq_off.ctypes.data,
-        qname_blob, qname_off.ctypes.data, None,
+        qname_blob, qname_off.ctypes.data,
+        qname_len.ctypes.data if qname_len is not None else None,
         *args0,
         gctx[0], gctx[1], gctx[3], gctx[4],
         gctx[5], gctx[6], gctx[7], gctx[8], gctx[9],

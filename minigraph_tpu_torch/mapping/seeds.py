@@ -16,8 +16,8 @@ import numpy as np
 
 from ..index.midx import MinimizerIndex
 from ..index.sketch import sketch
-from ..options import (MG_SEED_OCC_SHIFT, MG_SEED_SEG_SHIFT, MG_SEED_TANDEM,
-                       MapOptions)
+from ..options import (MG_M_NO_DIAG, MG_SEED_OCC_SHIFT, MG_SEED_SEG_SHIFT,
+                       MG_SEED_TANDEM, MapOptions)
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
 from .native_tail import _seg_len, get_collect_ctx
@@ -44,12 +44,136 @@ def collect_minimizers(gi: MinimizerIndex, qlens: List[int], seqs: List[str]):
     return np.concatenate(xs), np.concatenate(ys)
 
 
+def _heap_lt(a, b) -> bool:
+    return a[0] > b[0]
+
+
+def _heapdown(i: int, n: int, heap: list) -> None:
+    """ks_heapdown (ksort.h:43-53): max-heap w.r.t. heap_lt = (x >)."""
+    k = i
+    tmp = heap[i]
+    while True:
+        k = (k << 1) + 1
+        if k >= n:
+            break
+        if k != n - 1 and _heap_lt(heap[k], heap[k + 1]):
+            k += 1
+        if _heap_lt(heap[k], tmp):
+            break
+        heap[i] = heap[k]
+        i = k
+    heap[i] = tmp
+
+
+def _heapmake(n: int, heap: list) -> None:
+    for i in range((n >> 1) - 1, -1, -1):
+        _heapdown(i, n, heap)
+
+
+def collect_seed_hits_heap(gi: MinimizerIndex, opt: MapOptions,
+                           max_occ: int, mv_x: np.ndarray,
+                           mv_y: np.ndarray):
+    """Heap-merge seed collection (collect_seed_hits_heap,
+    map-algo.c:93-150): anchors come out sorted by construction.  Used
+    by the short-read presets (--heap-sort)."""
+    n_mv = len(mv_x)
+    if n_mv == 0:
+        return (np.empty(0, U64), np.empty(0, U64), 0, np.empty(0, np.int64))
+    minier = mv_x >> U64(8)
+    start, cnt = gi.get_many(minier)
+    q_pos = (mv_y & U64(0xFFFFFFFF)).astype(np.int64)
+    q_span = (mv_x & U64(0xFF)).astype(np.int64)
+    seg_id = (mv_y >> U64(32)).astype(np.int64)
+    over = cnt >= max_occ
+    kept = ~over
+
+    rep_len = 0
+    rep_st = rep_en = 0
+    for i in np.nonzero(over)[0]:
+        en = (q_pos[i] >> 1) + 1
+        st = en - q_span[i]
+        if st > rep_en:
+            rep_len += rep_en - rep_st
+            rep_st, rep_en = st, en
+        else:
+            rep_en = en
+    rep_len += rep_en - rep_st
+
+    tandem = np.zeros(n_mv, dtype=bool)
+    if n_mv > 1:
+        same_prev = minier[1:] == minier[:-1]
+        tandem[1:] |= same_prev
+        tandem[:-1] |= same_prev
+
+    k_idx = np.nonzero(kept)[0]
+    mini_pos = (q_pos[k_idx] >> 1).astype(np.int64)
+    n_m = len(k_idx)
+    n_a = int(cnt[k_idx].sum())
+    if n_a == 0:
+        return (np.empty(0, U64), np.empty(0, U64), int(rep_len), mini_pos)
+    seg_len = _seg_len(gi.g)
+
+    # heap entries: [x = r value, y = match_idx<<32 | hit_pos]
+    heap = []
+    for mi in range(n_m):
+        i = k_idx[mi]
+        if cnt[i] > 0:
+            heap.append([int(gi.pos[start[i]]), mi << 32])
+    heap_size = len(heap)
+    _heapmake(heap_size, heap)
+
+    ax = np.empty(n_a, dtype=np.uint64)
+    ay = np.empty(n_a, dtype=np.uint64)
+    n_for = 0
+    n_rev = 0
+    while heap_size > 0:
+        mi = heap[0][1] >> 32
+        i = k_idx[mi]
+        r = heap[0][0]
+        rpos = (r & 0xFFFFFFFF) >> 1
+        qp = int(q_pos[i])
+        span = int(q_span[i])
+        occ = int(cnt[i])
+        if (r & 1) == (qp & 1):  # forward strand
+            x = ((r >> 32) << 33) | rpos
+            pos_out = n_for
+            n_for += 1
+        else:
+            x = ((r >> 32) << 33) | (1 << 32) \
+                | (int(seg_len[r >> 32]) - (rpos + 1 - span) - 1)
+            n_rev += 1
+            pos_out = n_a - n_rev
+        y = (span << 32) | (qp >> 1)
+        y |= int(seg_id[i]) << MG_SEED_SEG_SHIFT
+        if tandem[i]:
+            y |= MG_SEED_TANDEM
+        y |= min(occ, 255) << MG_SEED_OCC_SHIFT
+        ax[pos_out] = x
+        ay[pos_out] = y
+        hit = heap[0][1] & 0xFFFFFFFF
+        if hit < occ - 1:
+            heap[0][1] += 1
+            heap[0][0] = int(gi.pos[start[i] + hit + 1])
+        else:
+            heap[0] = heap[heap_size - 1]
+            heap_size -= 1
+        _heapdown(0, heap_size, heap)
+    # reverse-strand anchors were filled from the end in descending order
+    if n_a > n_for + n_rev:
+        ax[n_for: n_for + n_rev] = ax[n_a - n_rev:]
+        ay[n_for: n_for + n_rev] = ay[n_a - n_rev:]
+        n_a = n_for + n_rev
+        ax, ay = ax[:n_a], ay[:n_a]
+    return ax, ay, int(rep_len), mini_pos
+
+
 def collect_seed_hits(gi: MinimizerIndex, opt: MapOptions, max_occ: int,
-                      mv_x: np.ndarray, mv_y: np.ndarray):
+                      mv_x: np.ndarray, mv_y: np.ndarray, qname=None):
     """Index lookups + anchor construction + exact-order sort
     (collect_matches + collect_seed_hits, map-algo.c:58-192).
 
-    Returns (ax, ay, rep_len, mini_pos).
+    Returns (ax, ay, rep_len, mini_pos).  With -D (NO_DIAG) and a
+    query name, hits on the query's own diagonal are dropped.
     """
     n_mv = len(mv_x)
     if n_mv == 0:
@@ -99,6 +223,27 @@ def collect_seed_hits(gi: MinimizerIndex, opt: MapOptions, max_occ: int,
                            np.cumsum(k_cnt)[:-1]])
     hit_off = np.arange(n_a, dtype=np.int64) - offs[m_rep]
     r = gi.pos[start[k_idx][m_rep] + hit_off]
+
+    if qname is not None and (opt.flag & MG_M_NO_DIAG):
+        # skip self-diagonal matches (-D; map-algo.c:167-177)
+        keep_hit = np.ones(n_a, dtype=bool)
+        for h in range(n_a):
+            rk = int(r[h])
+            s = gi.g.seg[rk >> 32]
+            if s.snid >= 0 and gi.g.sseq:
+                gname = gi.g.sseq[s.snid].name
+                g_pos = s.soff + (rk & 0xFFFFFFFF)
+            else:
+                gname = s.name
+                g_pos = rk & 0xFFFFFFFF
+            if g_pos == int(q_pos[k_idx][m_rep[h]]) and qname == gname:
+                keep_hit[h] = False
+        m_rep = m_rep[keep_hit]
+        r = r[keep_hit]
+        n_a = len(r)
+        if n_a == 0:
+            return (np.empty(0, U64), np.empty(0, U64), int(rep_len),
+                    mini_pos)
 
     mq_pos = q_pos[k_idx][m_rep]
     mq_span = q_span[k_idx][m_rep]

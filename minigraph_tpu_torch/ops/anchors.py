@@ -38,6 +38,7 @@ JAX sorts' is_stable=True does.
 from __future__ import annotations
 
 from dataclasses import dataclass
+from typing import Optional
 
 import numpy as np
 import torch
@@ -147,13 +148,20 @@ def _slot_hashes_np(hh, hl, hbits):
 
 @dataclass
 class HashJoinIndex:
-    """Cuckoo hash table + position planes (u32 values, int64 tensors)."""
+    """Cuckoo hash table + position planes (u32 values, int64 tensors).
+
+    The JAX package's table holds minimizers below 2^34 (k <= 17): the
+    key's high bits ride in the payload's two low bits.  For wider keys
+    (asm's k = 19, sr's k = 21) the port adds tag_hi, the whole high
+    word of each slot's key, and checks it instead; the other tables
+    stay as the JAX package builds them."""
     tag: torch.Tensor    # (H,) low 32 bits of the minimizer
     pay: torch.Tensor    # (H,) start<<10 | min(cnt,255)<<2 | hash_hi2
     p_rid: torch.Tensor  # (P,) rid<<1|strand
     p_sel: torch.Tensor  # (2P,) interleaved [rpos, seg_len-rpos-2]
     hbits: int
     occ_cap: int
+    tag_hi: Optional[torch.Tensor] = None  # (H,) keys >> 32, wide keys
 
     @staticmethod
     def host_arrays(gi) -> dict:
@@ -164,14 +172,14 @@ class HashJoinIndex:
         pos = np.asarray(gi.pos, dtype=np.uint64)
         seg_len = _seg_len(gi)
         K = len(keys)
-        if keys.max(initial=0) >= 1 << 34:
-            raise ValueError("minimizer exceeds the hash tag width")
+        wide = keys.max(initial=0) >= 1 << 34
         if start.max(initial=0) >= 1 << 22:
             raise ValueError("position array too large for 22-bit start")
         hh = (keys >> np.uint64(32)).astype(np.uint32)
         hl = keys.astype(np.uint32)
         pay = (start.astype(np.uint32) << np.uint32(10)) \
-            | (np.minimum(cnt, 255).astype(np.uint32) << np.uint32(2)) | hh
+            | (np.minimum(cnt, 255).astype(np.uint32) << np.uint32(2)) \
+            | (hh & np.uint32(3))
         hbits = max(4, int(np.ceil(np.log2(max(K, 1) * 2))))
         for _ in range(6):
             H = 1 << hbits
@@ -212,8 +220,13 @@ class HashJoinIndex:
         p_sel = np.zeros(2 * max(len(pos), 1), dtype=np.uint32)
         p_sel[0: 2 * len(pos): 2] = p_pos
         p_sel[1: 2 * len(pos): 2] = p_base
-        return {"tag": tag, "pay": payt, "p_rid": p_rid, "p_sel": p_sel,
-                "hbits": hbits}
+        out = {"tag": tag, "pay": payt, "p_rid": p_rid, "p_sel": p_sel,
+               "hbits": hbits}
+        if wide:
+            tag_hi = np.zeros(H, dtype=np.uint32)
+            tag_hi[filled] = hh[table[filled]]
+            out["tag_hi"] = tag_hi
+        return out
 
     @classmethod
     def from_host(cls, gi, occ_cap: int = 16, device="cuda"):
@@ -225,7 +238,8 @@ class HashJoinIndex:
             return u32.from_numpy(np.asarray(arrays[name]), device)
         return cls(tag=t("tag"), pay=t("pay"), p_rid=t("p_rid"),
                    p_sel=t("p_sel"), hbits=int(arrays["hbits"]),
-                   occ_cap=occ_cap)
+                   occ_cap=occ_cap,
+                   tag_hi=t("tag_hi") if "tag_hi" in arrays else None)
 
 
 def tables_from_numpy(kind: str, arrays: dict, device, occ_cap: int = 16):
@@ -377,8 +391,12 @@ def _hash_probe(hi: HashJoinIndex, qhh, qhl, qvalid):
     s2 = ((_mul32(qhl, MUL2A) + _mul32(qhh, MUL2B)) & U32MAX) >> sh
     t1, y1 = hi.tag[s1], hi.pay[s1]
     t2, y2 = hi.tag[s2], hi.pay[s2]
-    hit1 = (t1 == qhl) & ((y1 & 3) == qhh) & (y1 != U32MAX)
-    hit2 = (t2 == qhl) & ((y2 & 3) == qhh) & (y2 != U32MAX)
+    if hi.tag_hi is None:
+        h1, h2 = y1 & 3, y2 & 3
+    else:
+        h1, h2 = hi.tag_hi[s1], hi.tag_hi[s2]
+    hit1 = (t1 == qhl) & (h1 == qhh) & (y1 != U32MAX)
+    hit2 = (t2 == qhl) & (h2 == qhh) & (y2 != U32MAX)
     payv = torch.where(hit1, y1, y2)
     found = (hit1 | hit2) & qvalid
     return (found, torch.where(found, (payv >> 2) & 0xFF, 0),

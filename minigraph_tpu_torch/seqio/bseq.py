@@ -9,6 +9,7 @@ from dataclasses import dataclass
 from typing import IO, Iterator, List, Optional
 
 _U2T = bytes.maketrans(b"uU", b"tT")
+CHECK_PAIR_THRES = 1_000_000
 
 
 @dataclass
@@ -22,6 +23,23 @@ class BSeq:
     @property
     def l_seq(self) -> int:
         return len(self.seq)
+
+
+def _qname_len(s: str) -> int:
+    n = len(s)
+    if n >= 3 and s[-1].isdigit() and s[-2] == "/":
+        return n - 2
+    return n
+
+
+def qname_same(a: str, b: str) -> bool:
+    """Names identical after stripping a trailing /[0-9] (bseq.h:35-41)."""
+    la, lb = _qname_len(a), _qname_len(b)
+    return la == lb and a[:la] == b[:la]
+
+
+def toupper(s: str) -> str:
+    return s.upper()
 
 
 def _open_text(fn: str) -> IO[str]:
@@ -84,6 +102,7 @@ class BSeqFile:
     def __init__(self, fn: str):
         self._fp = _open_text(fn)
         self._it = _records(self._fp)
+        self._pending: Optional[BSeq] = None
 
     def close(self):
         if self._fp is not sys.stdin:
@@ -95,16 +114,35 @@ class BSeqFile:
         except StopIteration:
             return None
 
-    def read_batch(self, chunk_size: int) -> List[BSeq]:
-        """mg_bseq_read (bseq.c:61-98): read until chunk_size bases."""
+    def read_batch(self, chunk_size: int,
+                   frag_mode: bool = False) -> List[BSeq]:
+        """mg_bseq_read (bseq.c:61-98): read until chunk_size bases; in
+        frag mode the records that share the last one's name (mates)
+        join the batch too."""
         out: List[BSeq] = []
         size = 0
-        while size < chunk_size:
+        if self._pending is not None:
+            out.append(self._pending)
+            size = self._pending.l_seq
+            self._pending = None
+        while True:
             s = self._next()
             if s is None:
                 break
             out.append(s)
             size += s.l_seq
+            if size >= chunk_size:
+                if frag_mode and out[-1].l_seq < CHECK_PAIR_THRES:
+                    while True:
+                        t = self._next()
+                        if t is None:
+                            break
+                        if qname_same(t.name, out[-1].name):
+                            out.append(t)
+                        else:
+                            self._pending = t
+                            break
+                break
         return out
 
 

@@ -1,14 +1,21 @@
 """GAF record serialization of the per-read path (mg_write_gaf,
-format.c:121-291), for the output flags the port admits
-(mapper.py SUPPORTED_FLAGS) and single-segment reads without base-level
-alignment (no -c)."""
+format.c:121-291) without base-level alignment (the port refuses -c):
+stable-sequence or vertex (--vc) coordinates, merged fragments (ql:B:i)
+and the -S linear-chain lines."""
 from __future__ import annotations
 
+import math
 from typing import List, Optional
 
 from ..graph.gfa import Graph
 from ..mapping.gchain import GChains
-from ..options import MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP
+from ..options import (MG_M_FRAG_MERGE, MG_M_NO_COMP_PATH, MG_M_PRINT_2ND,
+                       MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN)
+
+
+def _i32(v: int) -> int:
+    v &= 0xFFFFFFFF
+    return v - 0x100000000 if v >= 0x80000000 else v
 
 
 def _fmt_div(div: float) -> str:
@@ -17,18 +24,27 @@ def _fmt_div(div: float) -> str:
     return f"{float(div):.4f}"[:15]
 
 
+def _merged_name(qname: str, n_seg: int, flag: int) -> str:
+    """A merged pair is written under its first mate's name without
+    the trailing /1."""
+    if (flag & MG_M_FRAG_MERGE) and n_seg == 2 and len(qname) > 2 \
+            and qname[-1] == "1" and qname[-2] == "/":
+        return qname[:-2]
+    return qname
+
+
 def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
               qname: str, flag: int) -> str:
     """Serialize all chains of one query to GAF text."""
-    assert n_seg == 1, "the port maps single-segment reads only"
     if gs is not None:
         txt = getattr(gs, "gaf_text", None)
         if txt is not None:
             # serialized natively off the chain tables (mgt_gaf.c)
             return txt
     qlen = sum(qlens)
+    name = _merged_name(qname, n_seg, flag)
     if (gs is None or gs.n_gc == 0) and (flag & MG_M_SHOW_UNMAP):
-        return f"{qname}\t{qlen}\t0\t0\t*\t*\t0\t0\t0\t0\t0\t0\n"
+        return f"{name}\t{qlen}\t0\t0\t*\t*\t0\t0\t0\t0\t0\t0\n"
     if gs is None:
         return ""
     out: List[str] = []
@@ -37,45 +53,54 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
             continue
         if p.cnt == 0:
             continue
-        s: List[str] = [f"{qname}\t{qlen}\t{p.qs}\t{p.qe}\t+\t"]
-        last_pnid, st, en, rev = -1, -1, -1, -1
-        compact = 0 if (flag & MG_M_NO_COMP_PATH) else 1
-        for j in range(p.cnt):
-            q = gs.lc[p.off + j]
-            t = g.seg[q.v >> 1]
-            if t.snid < 0:
-                compact = 0
-                if last_pnid >= 0:
-                    s.append(f"{'><'[rev]}{g.sseq[last_pnid].name}:{st}-{en}")
-                last_pnid, st, en, rev = -1, -1, -1, -1
-                s.append(f"{'><'[q.v & 1]}{t.name}")
-            else:
-                cont = 0
-                if last_pnid >= 0 and t.snid == last_pnid \
-                        and (q.v & 1) == rev:
-                    if not (q.v & 1):
-                        if t.soff == en:
-                            en = t.soff + t.len
-                            cont = 1
-                    else:
-                        if t.soff + t.len == st:
-                            st = t.soff
-                            cont = 1
-                if cont == 0:
+        s: List[str] = [f"{name}\t{qlen}\t{p.qs}\t{p.qe}\t+\t"]
+        if flag & MG_M_VERTEX_COOR:
+            compact = 0
+            for j in range(p.cnt):
+                q = gs.lc[p.off + j]
+                s.append(f"{'><'[q.v & 1]}{g.seg[q.v >> 1].name}")
+        else:
+            last_pnid, st, en, rev = -1, -1, -1, -1
+            compact = 0 if (flag & MG_M_NO_COMP_PATH) else 1
+            for j in range(p.cnt):
+                q = gs.lc[p.off + j]
+                t = g.seg[q.v >> 1]
+                if t.snid < 0:
+                    compact = 0
                     if last_pnid >= 0:
-                        compact = 0
                         s.append(f"{'><'[rev]}{g.sseq[last_pnid].name}"
                                  f":{st}-{en}")
-                    last_pnid, rev = t.snid, q.v & 1
-                    st = t.soff
-                    en = st + t.len
-        if last_pnid >= 0:
-            if g.sseq[last_pnid].rank != 0 or g.sseq[last_pnid].min != 0:
+                    last_pnid, st, en, rev = -1, -1, -1, -1
+                    s.append(f"{'><'[q.v & 1]}{t.name}")
+                else:
+                    cont = 0
+                    if last_pnid >= 0 and t.snid == last_pnid \
+                            and (q.v & 1) == rev:
+                        if not (q.v & 1):
+                            if t.soff == en:
+                                en = t.soff + t.len
+                                cont = 1
+                        else:
+                            if t.soff + t.len == st:
+                                st = t.soff
+                                cont = 1
+                    if cont == 0:
+                        if last_pnid >= 0:
+                            compact = 0
+                            s.append(f"{'><'[rev]}{g.sseq[last_pnid].name}"
+                                     f":{st}-{en}")
+                        last_pnid, rev = t.snid, q.v & 1
+                        st = t.soff
+                        en = st + t.len
+            if last_pnid >= 0:
+                if g.sseq[last_pnid].rank != 0 \
+                        or g.sseq[last_pnid].min != 0:
+                    compact = 0
+                if not compact:
+                    s.append(f"{'><'[rev]}{g.sseq[last_pnid].name}"
+                             f":{st}-{en}")
+            else:
                 compact = 0
-            if not compact:
-                s.append(f"{'><'[rev]}{g.sseq[last_pnid].name}:{st}-{en}")
-        else:
-            compact = 0
         if compact:
             rev = gs.lc[p.off].v & 1
             t = g.seg[gs.lc[p.off + p.cnt - 1 if rev else p.off].v >> 1]
@@ -94,6 +119,34 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
         s.append(f"\tcm:i:{p.n_anchor}\ts1:i:{p.score}\ts2:i:{p.subsc}")
         if 0.0 <= p.div <= 1.0:
             s.append(f"\tdv:f:{_fmt_div(p.div)}")
+        if n_seg > 1:
+            s.append("\tql:B:i" + "".join(f",{x}" for x in qlens))
         s.append("\n")
+        if flag & MG_M_WRITE_LCHAIN:
+            _write_lchain_lines(s, g, gs, p)
         out.append("".join(s))
     return "".join(out)
+
+
+def _write_lchain_lines(s: List[str], g: Graph, gs: GChains, p) -> None:
+    """-S linear-chain lines (format.c:252-289)."""
+    for j in range(p.cnt):
+        lc = gs.lc[p.off + j]
+        s.append(f"*\t{'><'[lc.v & 1]}{g.seg[lc.v >> 1].name}"
+                 f"\t{g.seg[lc.v >> 1].len}\t{lc.cnt}")
+        if lc.cnt > 0:
+            q_span = (int(gs.ay[lc.off]) >> 32) & 0xFF
+            n = (int(gs.ax[lc.off + lc.cnt - 1]) >> 32) \
+                - (int(gs.ax[lc.off]) >> 32) + 1
+            if n == lc.cnt:
+                div = 0.0
+            elif n > lc.cnt:
+                div = math.log(n / lc.cnt) / q_span
+            else:
+                div = math.log(lc.cnt / n) / q_span
+            s.append(f"\t{_fmt_div(div)}")
+            s.append(f"\t{_i32(int(gs.ax[lc.off])) + 1 - q_span}"
+                     f"\t{_i32(int(gs.ax[lc.off + lc.cnt - 1])) + 1}")
+            s.append(f"\t{_i32(int(gs.ay[lc.off])) + 1 - q_span}"
+                     f"\t{_i32(int(gs.ay[lc.off + lc.cnt - 1])) + 1}")
+        s.append("\n")

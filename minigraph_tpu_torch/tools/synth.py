@@ -90,6 +90,46 @@ def make_reference(length: int, seed: int = 0,
     return np.concatenate(parts)[:length].tobytes().decode("latin-1")
 
 
+def make_haplotype(ref: str, seed: int, sv_per_mb: float = 12.0,
+                   snp: float = 0.001, small_indel: float = 0.0001) -> str:
+    """A haplotype with SVs (del/ins/dup/inv) over a SNP/indel layer."""
+    rng = np.random.default_rng(seed)
+    a = np.frombuffer(ref.encode("latin-1"), dtype=np.uint8)
+    n_sv = max(1, int(len(a) / 1e6 * sv_per_mb))
+    # non-overlapping SV positions, left to right
+    pos = np.sort(rng.integers(1000, max(2000, len(a) - 20000), n_sv))
+    parts = []
+    prev = 0
+    for p in pos.tolist():
+        if p < prev:
+            continue
+        parts.append(a[prev:p])
+        kind = rng.choice(["del", "ins", "dup", "inv"],
+                          p=[0.35, 0.35, 0.15, 0.15])
+        if kind == "del":
+            prev = p + int(rng.integers(60, 5000))
+        elif kind == "ins":
+            if rng.random() < 0.5:        # novel sequence
+                parts.append(_rand_seq(rng, int(rng.integers(60, 5000))))
+            else:                         # mobile-element-like copy
+                src = int(rng.integers(0, len(a) - 3000))
+                ln = int(rng.integers(100, 3000))
+                parts.append(_mutate(rng, a[src:src + ln], 0.05))
+            prev = p
+        elif kind == "dup":
+            ln = int(rng.integers(60, 2000))
+            parts.append(a[p:p + ln])     # tandem: unit appears twice
+            prev = p
+        else:  # inversion
+            ln = int(rng.integers(200, 4000))
+            parts.append(_mutate(rng, _revcomp(a[p:p + ln]), 0.01))
+            prev = p + ln
+    parts.append(a[prev:])
+    hap = np.concatenate(parts)
+    hap = _mutate(rng, hap, snp, small_indel)
+    return hap.tobytes().decode("latin-1")
+
+
 def simulate_reads(seqs: List[str], n_reads: int, seed: int = 0,
                    mean_len: int = 15000, min_len: int = 1000,
                    max_len: int = 40000, sub: float = 0.02,
@@ -110,6 +150,52 @@ def simulate_reads(seqs: List[str], n_reads: int, seed: int = 0,
             r = _revcomp(r)
         r = _mutate(rng, r, sub, indel)
         out.append((f"rd{i}_h{src}_{st}", r.tobytes().decode("latin-1")))
+    return out
+
+
+def simulate_pairs(seq: str, n_pairs: int, seed: int = 0,
+                   read_len: int = 150, insert_mean: int = 400,
+                   sub: float = 0.003, indel: float = 0.0002):
+    """Paired short reads (FR) off one haplotype: a fragment of
+    lognormal length around insert_mean from either strand, mate 1 its
+    first read_len bases, mate 2 the reverse complement of its last,
+    each mutated on its own.  Returns (mates 1, mates 2) as lists of
+    (name, seq) with names frag<i>/1 and frag<i>/2."""
+    rng = np.random.default_rng(seed)
+    a = np.frombuffer(seq.encode("latin-1"), dtype=np.uint8)
+    r1, r2 = [], []
+    for i in range(n_pairs):
+        ln = int(np.clip(rng.lognormal(np.log(insert_mean), 0.2),
+                         read_len, 4 * insert_mean))
+        st = int(rng.integers(0, len(a) - ln + 1))
+        frag = a[st:st + ln]
+        if rng.random() < 0.5:
+            frag = _revcomp(frag)
+        m1 = _mutate(rng, frag[:read_len], sub, indel)
+        m2 = _mutate(rng, _revcomp(frag[ln - read_len:]), sub, indel)
+        r1.append((f"frag{i}/1", m1.tobytes().decode("latin-1")))
+        r2.append((f"frag{i}/2", m2.tobytes().decode("latin-1")))
+    return r1, r2
+
+
+def cut_contigs(seq: str, seed: int = 0, mean_len: int = 12000,
+                min_len: int = 2000, max_len: int = 32000,
+                long_every: int = 50,
+                long_len: int = 200_000) -> List[Tuple[str, str]]:
+    """An assembly-like query: `seq` cut into consecutive contigs of
+    lognormal length (mean mean_len, clipped to [min_len, max_len]),
+    every long_every-th one long_len long, named ctg<i>_<start>."""
+    rng = np.random.default_rng(seed)
+    out = []
+    st = 0
+    while st < len(seq):
+        if len(out) % long_every == long_every - 1:
+            ln = long_len
+        else:
+            ln = int(np.clip(rng.lognormal(np.log(mean_len) - 0.18, 0.6),
+                             min_len, max_len))
+        out.append((f"ctg{len(out)}_{st}", seq[st: st + ln]))
+        st += ln
     return out
 
 

@@ -5,9 +5,9 @@ p and sure of every read, and against the XLA full-window chain
 (ops/chain_exact.lchain_dp_exact_win) on the sure flags and on f and p
 of sure reads; the JAX kernel's preconditions; and the device front
 with the chunked chain switched on against the front without it, and
-map_files with the switch on against the host path, through map_batch
-(the loop of a file the native reader cannot open) and through the
-native file loop (the split pinned at share 0).  Integer outputs
+the file loops with the switch on against the host path, the split
+pinned at share 0: the Python reader loop (the loop of a file the
+native reader cannot open) and the native file loop.  Integer outputs
 and flags: tolerance 0."""
 import io
 
@@ -166,21 +166,27 @@ def test_front_chunked_matches_full_window(graph, monkeypatch):
 
 
 def test_map_files_chunked_matches_host(graph, monkeypatch):
-    """map_batch with the switch on, the native reader refused."""
+    """The Python reader loop (the native reader refused) with the switch
+    on and a CPU front whose split is pinned at share 0, against
+    map_files on the host path."""
     gfa, fa, _ = graph
-    outs, st = {}, {}
 
     def refuse(fn):
         raise OSError(f"cannot open {fn}")
     monkeypatch.setattr(mapper, "NativeSeqReader", refuse)
-    for dev in ("cpu", None):
-        monkeypatch.setenv("MGT_CHAIN_CHUNKED", "1")
-        buf = io.StringIO()
-        mapper.map_files(read_gfa(gfa), [fa], IndexOptions(), MapOptions(),
-                         out=buf, n_threads=2, device=dev, stats=st)
-        outs[dev] = buf.getvalue()
-    assert outs["cpu"] == outs[None]
-    assert outs[None].count("\n") >= 35
+    monkeypatch.setenv("MGT_CHAIN_CHUNKED", "1")
+    host = io.StringIO()
+    mapper.map_files(read_gfa(gfa), [fa], IndexOptions(), MapOptions(),
+                     out=host, n_threads=2, device=None)
+    mo, ipt = MapOptions(), IndexOptions()
+    gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
+    front = DeviceFront(gi, mo, device="cpu")
+    assert front.chain_chunked
+    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    buf, st = io.StringIO(), {}
+    mapper.map_reads(gi, mo, [fa], buf, 2, front, st)
+    assert buf.getvalue() == host.getvalue()
+    assert host.getvalue().count("\n") >= 35
     assert st["n_device"] >= 35, st
     assert "n_arena" not in st, st
 

@@ -659,3 +659,60 @@ def test_front_launches_backtrack_once_a_batch(card, tmp_path):
     assert front.n_batches >= 3
     assert kernels.launches["backtrack"] == front.n_batches
     assert sum(fr is not None for fr in out) >= 20
+
+
+@pytest.mark.parametrize("preset", ["asm", "rmq"])
+def test_seed_only_front_on_card(card, tmp_path, preset):
+    """asm (k = 19, the wide-key hash join) and --rmq: the seed-only
+    front launches the sketch kernel and no chain or backtrack kernel,
+    its anchors equal the native collect's, and map_files on the card
+    writes the host run's bytes."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.mapping.device_front import DeviceFront
+    from minigraph_tpu_torch.mapping.mapper import map_files
+    from minigraph_tpu_torch.mapping.seeds import collect_native
+    from minigraph_tpu_torch.options import (MG_M_RMQ, IndexOptions,
+                                             MapOptions, opt_set)
+    from minigraph_tpu_torch.tools.synth import (cut_contigs, make_haplotype,
+                                                 make_reference,
+                                                 write_bubble_rgfa,
+                                                 write_fasta)
+    ref = make_reference(300_000, seed=12)
+    write_bubble_rgfa(ref, 13, str(tmp_path / "g.gfa"), seg_len=20_000)
+    io_, mo = IndexOptions(), MapOptions()
+    if preset == "asm":
+        opt_set("asm", io_, mo)
+    else:
+        mo.flag |= MG_M_RMQ
+    ctg = cut_contigs(make_haplotype(ref, 14), 15, mean_len=5000,
+                      min_len=500, max_len=30000, long_every=20,
+                      long_len=40000)
+    write_fasta(str(tmp_path / "q.fa"), ctg)
+    gi = build_index(read_gfa(str(tmp_path / "g.gfa")), io_.k, io_.w, mo)
+    front = DeviceFront(gi, mo, device="cuda")
+    seqs = [s for _, s in ctg if len(s) <= 32768]
+    kernels.reset_launches()
+    out = front.gather(front.submit(seqs))
+    assert kernels.launches["sketch"] == front.n_batches >= 2
+    for name in ("chain_exact", "chain_chunked", "backtrack"):
+        assert kernels.launches[name] == 0, name
+    n = 0
+    for seq, fr in zip(seqs, out):
+        if fr is None:
+            continue
+        ax, ay, rep_len, mini_pos, n_mv = collect_native(gi, mo, mo.occ_max1,
+                                                         seq)
+        assert np.array_equal(fr.ax, ax) and np.array_equal(fr.ay, ay)
+        assert np.array_equal(np.asarray(fr.mini_pos, np.int64), mini_pos)
+        assert (fr.rep_len, fr.n_mv, fr.u) == (rep_len, n_mv, None)
+        n += 1
+    assert n >= len(seqs) // 2
+    outs = {}
+    for dev in ("cuda", None):
+        buf = io.StringIO()
+        map_files(read_gfa(str(tmp_path / "g.gfa")), [str(tmp_path / "q.fa")],
+                  io_, mo, out=buf, n_threads=2, device=dev)
+        outs[dev] = buf.getvalue()
+    assert outs["cuda"] == outs[None]
+    assert outs[None].count("\n") >= 20

@@ -2,11 +2,11 @@
 port with device="cpu" (seed and chain stages through the plain PyTorch
 versions), the port with device=None (every read on the native host
 path) and the JAX package's map_files(device=False) write the same
-bytes, through map_batch (the loop of a file the native reader cannot
-open, e.g. stdin) and through the native file loop with the host/device
-split pinned to send every eligible read to the device front; so does
-the port's command line (the native file loop with the split as it
-starts)."""
+bytes, through the Python reader loop (the loop of a file the native
+reader cannot open, e.g. stdin) and through the native file loop, each
+with the host/device split pinned to send every eligible read to the
+device front; so does the port's command line (the native file loop
+with the split as it starts)."""
 import io
 import os
 import subprocess
@@ -56,27 +56,27 @@ def _refuse(fn):
 
 
 def port_gaf(files, device, flag=0, loop="batch"):
-    """The port's GAF text and stats.  loop="batch": map_files with the
-    native reader refused, so map_reads maps the file batch by batch
-    through map_batch.  loop="native": the native file loop; map_files
-    for device=None, for a device map_reads with the host/device split
-    pinned at share 0 (every eligible read to the device front)."""
+    """The port's GAF text and stats.  loop="batch": the native reader
+    refused, so the Python reader loop maps the file batch by batch.
+    loop="native": the native file loop.  map_files for device=None; for
+    a device map_reads with the host/device split pinned at share 0
+    (every eligible read to the device front)."""
     gfa, fa = files
     out, st = io.StringIO(), {}
     mo = MapOptions()
     mo.flag |= flag
-    if loop == "batch" or device is None:
-        with pytest.MonkeyPatch.context() as mp:
-            if loop == "batch":
-                mp.setattr(mapper, "NativeSeqReader", _refuse)
+    with pytest.MonkeyPatch.context() as mp:
+        if loop == "batch":
+            mp.setattr(mapper, "NativeSeqReader", _refuse)
+        if device is None:
             mapper.map_files(read_gfa(gfa), [fa], IndexOptions(), mo,
                              out=out, n_threads=2, device=device, stats=st)
-        return out.getvalue(), st
-    ipt = IndexOptions()
-    gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
-    front = DeviceFront(gi, mo, device=device)
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
-    mapper.map_reads(gi, mo, [fa], out, 2, front, st)
+            return out.getvalue(), st
+        ipt = IndexOptions()
+        gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
+        front = DeviceFront(gi, mo, device=device)
+        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        mapper.map_reads(gi, mo, [fa], out, 2, front, st)
     return out.getvalue(), st
 
 
@@ -101,7 +101,8 @@ def test_gaf_bytes_match_jax(files, flag):
     assert st["n_device"] >= 40, st
     assert set(st["stage_ms"]) == {"sketch", "collect", "chain",
                                    "backtrack", "pack"}
-    assert "n_arena" not in st, st          # map_batch, not the native loop
+    assert "n_arena" not in st, st          # the Python loop, not the native
+    assert st["n_share_host"] == 0, st      # the pin held
 
 
 @pytest.mark.parametrize("flag", [0, MG_M_SHOW_UNMAP])

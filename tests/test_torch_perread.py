@@ -4,10 +4,10 @@ read the GAF bytes are equal on the whole native tail and on each
 decomposed path that a native bail leads to, each forced on both sides
 by the same stub.  Then each file loop re-maps the reads whose native
 batch tail bailed on that path, with the bytes of the JAX package's
-map_files and of the unforced run: map_batch (the loop of a file the
-native reader cannot open, e.g. stdin) for device="cpu" and
-device=None, and the native file loop with a CPU device front (the
-split pinned at share 0) and with device=None."""
+map_files and of the unforced run: the Python reader loop (the loop of
+a file the native reader cannot open, e.g. stdin) and the native file
+loop, each with a CPU device front (the split pinned at share 0) and
+with device=None."""
 import io
 
 import pytest
@@ -125,26 +125,26 @@ def _refuse(fn):
 
 
 def _port_gaf(files, device, stats=None, loop="batch"):
-    """The port's GAF text.  loop="batch": map_files with the native
-    reader refused, so map_reads maps the file batch by batch through
-    map_batch.  loop="native": the native file loop; map_files for
-    device=None, for a device map_reads with the host/device split
-    pinned at share 0 (every eligible read to the device front)."""
+    """The port's GAF text.  loop="batch": the native reader refused, so
+    the Python reader loop maps the file batch by batch.  loop="native":
+    the native file loop.  map_files for device=None; for a device
+    map_reads with the host/device split pinned at share 0 (every
+    eligible read to the device front)."""
     out = io.StringIO()
-    if loop == "batch" or device is None:
-        with pytest.MonkeyPatch.context() as mp:
-            if loop == "batch":
-                mp.setattr(port_mapper, "NativeSeqReader", _refuse)
+    with pytest.MonkeyPatch.context() as mp:
+        if loop == "batch":
+            mp.setattr(port_mapper, "NativeSeqReader", _refuse)
+        if device is None:
             port_mapper.map_files(read_gfa(files[0]), [files[1]],
                                   IndexOptions(), MapOptions(flag=FLAG),
                                   out=out, n_threads=2, device=device,
                                   stats=stats)
-        return out.getvalue()
-    opt = MapOptions(flag=FLAG)
-    gi = build_index(read_gfa(files[0]), 17, 11, opt)
-    front = DeviceFront(gi, opt, device=device)
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
-    port_mapper.map_reads(gi, opt, [files[1]], out, 2, front, stats)
+            return out.getvalue()
+        opt = MapOptions(flag=FLAG)
+        gi = build_index(read_gfa(files[0]), 17, 11, opt)
+        front = DeviceFront(gi, opt, device=device)
+        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        port_mapper.map_reads(gi, opt, [files[1]], out, 2, front, stats)
     return out.getvalue()
 
 
@@ -168,7 +168,7 @@ def test_map_batch_bailed_reads(files, unforced, monkeypatch, device, path):
     forced = _port_gaf(files, device, st)
     assert forced == plain == want
     assert st["n_perread"] == (len(files[2]) + 2) // 3, st
-    assert "n_arena" not in st, st              # map_batch, not the native loop
+    assert "n_arena" not in st, st              # the Python loop
     if device is not None:
         assert st["n_device"] >= 15, st
 
