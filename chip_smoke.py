@@ -79,11 +79,29 @@ Phases, in order; any failure exits non-zero:
    file through the native arena loop (host only, mates grouped in C);
    (c) phase 4's reads through the Python reader loop (the native
    reader refused, as for stdin) with the split pinned at share 0 and a
-   bail forced on every 40th read.
+   bail forced on every 40th read;
+8. base-level alignment (-c), each run held to the GAF bytes of its
+   host-only run: (a) -cx lr on phase 4's reads through the native file
+   loop, the split pinned at share 0 with K2 (the native tail aligns in
+   its workers; cg:Z and ds:Z on the lines, >= 80% of eligible reads on
+   the device), then a bail forced on every 40th read, with the stage
+   and tail ms beside run (i)'s; (b) -cx asm on phase 7 (a)'s contigs on
+   the seed-only front; (c) -c --vc through the Python reader loop with
+   the front pinned and the native anchor walk declined for every 4th
+   chain, so those chains' gaps go to the front's gap pool
+   (align/cigar_device.py DeviceWfaPool: csrc/wfa_exact.cu wfa_wave and
+   wfa_walk at the buckets (768, 1024, 64) and (2048, 3072, 16)), held
+   to the unstubbed host-only run, printing the jobs a bucket, the
+   pool's n_device (> 0) and n_host and the kernels' launches; (d)
+   wfa_wave and wfa_walk on gap pairs of 256-2048 bp cut from the 5 Mb
+   reference: one full chunk a bucket bitwise against the plain
+   versions (tb on the rows below each score; the walk on the kernel's
+   and the plain tb), timed, and the CIGARs of 4096 pairs against the
+   native host engine's.
 
 After the build it prints ptxas' registers, stack frame and spills of
-the sketch, chunked-chain, ring-chain, banded-score and backtrack
-kernels.  Prints the kernels' JSON line,
+the sketch, chunked-chain, ring-chain, banded-score, backtrack and
+exact-WFA kernels.  Prints the kernels' JSON line,
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -110,6 +128,9 @@ CHAIN_OPS_PER_ROW = 40      # comput_sc with the fast log2, per candidate
 # substitution test and select, one add, four mins)
 WFA_OPS_PER_CELL = 4 * 3 + 7
 WFA_WA, WFA_PAIRS = 32, 4096
+# one exact-WFA wave cell: nine ring reads with edge tests, four maxes
+# and two adds for the gap planes, three for H, the tb byte's compares
+WFA_EXACT_OPS_PER_CELL = 20
 PROBE_OPS_PER_PAIR = 18     # the 9-term distance: 9 multiplies, 9 adds
 # bench.py bench_stage's shape of the batched map step
 STEP_B, STEP_PAD = 512, 2048
@@ -625,18 +646,20 @@ def forced_bail_run(gi, mo, reads, every, loop="native"):
         mapper.map_batch_native = real
 
 
-def device_run(gi, mo, reads, loop="native", n_host=0):
+def device_run(gi, mo, reads, loop="native", n_host=0, pool=None):
     """The port's file loop with a front on the card and the host/device
     split pinned at share 0 (every eligible read to the device), held to
     have sent n_host reads (the ineligible ones) to the host and kept
     the share at 0.  loop="native": the native file loop; loop="python":
     the native reader refused, so the Python reader loop maps the file
     (the loop of a file the native reader cannot open, e.g. stdin).
+    `pool`: the front's -c gap pool (else the loop makes one).
     Returns (GAF text, stats)."""
     from minigraph_tpu_torch.mapping import mapper
     from minigraph_tpu_torch.mapping.device_front import DeviceFront
     front = DeviceFront(gi, mo, device="cuda")
     front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._wfa_pool = pool
     buf, st = io.StringIO(), {}
 
     def refuse(fn):
@@ -909,6 +932,7 @@ def cli_phase(ref, gfa, work, kernels, k1_asm):
                      ("two files, host only", st_hs),
                      ("interleaved, native arena loop", st_is)):
         log(run_line(f"run (b) sr {name}", st, n_pairs) + " (pairs/s)")
+    return gi_a, mo_a, asm_fa, n_long, len(ctg), st_a
 
 
 def forced_python_run(gi, mo, reads_fa, host_gaf, n_reads, kernels):
@@ -931,6 +955,270 @@ def forced_python_run(gi, mo, reads_fa, host_gaf, n_reads, kernels):
         f"the device, GAF bytes equal to the host-only run; launches "
         f"{launches}")
     log(run_line("run (c) forced bails, Python loop", st, n_reads))
+
+
+def stages_line(name, st):
+    """Stage ms (device: CUDA events) and the native tail's host ms."""
+    stages = {k: round(v, 3) for k, v in st.get("stage_ms", {}).items()}
+    return (f"{name}: map {st['map_ms']:.1f} ms, native tail "
+            f"{st.get('tail_ms', 0.0):.1f} ms (host clock), stages {stages}")
+
+
+def cigar_main_path(gi, mo, reads_fa, st_noc, n_reads, kernels):
+    """Phase 8 (a): -cx lr through the native file loop, the split
+    pinned at share 0 with K2, against host only; then a bail forced on
+    every 40th read."""
+    from minigraph_tpu_torch.options import MG_M_CIGAR
+    mo_c = dataclasses.replace(mo, flag=mo.flag | MG_M_CIGAR)
+    host_c, st_hc = host_run(gi, mo_c, [reads_fa])
+    kernels.reset_launches()
+    gaf_c, st_c = device_run(gi, mo_c, reads_fa)
+    launches = dict(kernels.launches)
+    if gaf_c != host_c:
+        raise AssertionError(f"-c: GAF differs from the host run at line "
+                             f"{first_diff(gaf_c, host_c)}")
+    n_lines = host_c.count("\n")
+    n_cg, n_ds = host_c.count("\tcg:Z:"), host_c.count("\tds:Z:")
+    if n_cg < 0.9 * n_lines or n_ds < 0.9 * n_lines:
+        raise AssertionError(f"-c: {n_cg} cg:Z and {n_ds} ds:Z in "
+                             f"{n_lines} lines")
+    for name in ("sketch", "chain_exact", "backtrack"):
+        if launches[name] <= 0:
+            raise AssertionError(f"-c: {name} not launched: {launches}")
+    if launches["backtrack"] != st_c["n_batches"]:
+        raise AssertionError(f"-c: launches {launches}, {st_c}")
+    tot = st_c["n_device"] + st_c["n_fallback"] + st_c["n_chain_unsure"]
+    if st_c["n_device"] < 0.8 * tot:
+        raise AssertionError(f"-c: {st_c['n_device']}/{tot} on the device")
+    kernels.reset_launches()
+    forced, st_f = forced_bail_run(gi, mo_c, reads_fa, 40)
+    if forced != host_c or st_f["n_perread"] <= 0:
+        raise AssertionError(f"-c with forced bails: GAF differs at line "
+                             f"{first_diff(forced, host_c)}, {st_f}")
+    log(f"phase 8 (a) -cx lr, share pinned at 0 with K2: GAF bytes equal "
+        f"to the host-only run ({n_lines} lines, {len(host_c)} bytes, "
+        f"{n_cg} cg:Z, {n_ds} ds:Z); {st_c['n_device']}/{tot} eligible "
+        f"reads on the device; launches {launches}; forced bails: "
+        f"{st_f['n_perread']} reads on the per-read path, bytes equal")
+    log(stages_line("phase 8 (a) device path with -c", st_c))
+    log(stages_line("phase 8 (a) device path without -c (run (i))", st_noc))
+    log(run_line("run 8 (a) -c device path", st_c, n_reads))
+    log(run_line("run 8 (a) -c host only", st_hc, n_reads)
+        + ", 8 host threads")
+    log(run_line("run 8 (a) -c forced bails", st_f, n_reads))
+    return mo_c
+
+
+def cigar_asm(gi_a, mo_a, asm_fa, n_long, n_ctg, st_noc, kernels):
+    """Phase 8 (b): -cx asm on the seed-only front against host only."""
+    from minigraph_tpu_torch.options import MG_M_CIGAR
+    mo_c = dataclasses.replace(mo_a, flag=mo_a.flag | MG_M_CIGAR)
+    host_c, st_hc = host_run(gi_a, mo_c, [asm_fa])
+    kernels.reset_launches()
+    gaf_c, st_c = device_run(gi_a, mo_c, asm_fa, n_host=n_long)
+    launches = dict(kernels.launches)
+    if gaf_c != host_c:
+        raise AssertionError(f"-cx asm: GAF differs from the host run at "
+                             f"line {first_diff(gaf_c, host_c)}")
+    if launches["sketch"] <= 0 or launches["chain_exact"] \
+            or launches["backtrack"] or host_c.count("\tcg:Z:") <= 0:
+        raise AssertionError(f"-cx asm: launches {launches}")
+    log(f"phase 8 (b) -cx asm, seed-only front, share pinned at 0: GAF "
+        f"bytes equal to the host-only run ({host_c.count(chr(10))} lines, "
+        f"{len(host_c)} bytes, {host_c.count(chr(9) + 'cg:Z:')} cg:Z); "
+        f"n_device {st_c['n_device']}, launches {launches}")
+    log(stages_line("phase 8 (b) asm device path with -c", st_c))
+    log(stages_line("phase 8 (b) asm device path without -c (7 (a))",
+                    st_noc))
+    log(run_line("run 8 (b) -cx asm, seed-only front", st_c, n_ctg))
+    log(run_line("run 8 (b) -cx asm, host only", st_hc, n_ctg)
+        + ", 8 host threads")
+
+
+def cigar_pool_run(gi, mo_c, reads_fa, n_reads, kernels):
+    """Phase 8 (c): -c --vc through the Python reader loop with the front
+    pinned, the native anchor walk declined for every 4th chain, so
+    those chains' gaps go to the front's gap pool on the card; against
+    the unstubbed host-only -c --vc run.  Returns the kernels'
+    launches."""
+    from minigraph_tpu_torch.align import cigar
+    from minigraph_tpu_torch.align.cigar_device import (BUCKETS,
+                                                        MIN_DEV_LEN,
+                                                        DeviceWfaPool)
+    from minigraph_tpu_torch.options import MG_M_VERTEX_COOR
+    mo_v = dataclasses.replace(mo_c, flag=mo_c.flag | MG_M_VERTEX_COOR)
+    host_v, st_hv = host_run(gi, mo_v, [reads_fa])
+    pool = DeviceWfaPool(device="cuda")
+    seen = []
+    pool_run = pool.run
+
+    def run(jobs):
+        seen.extend(max(len(t), len(q)) for t, q in jobs)
+        return pool_run(jobs)
+    pool.run = run
+    real = cigar._gchain_cigar_native
+    n = [0]
+
+    def decline(*args):
+        n[0] += 1
+        return False if n[0] % 4 == 0 else real(*args)
+    cigar._gchain_cigar_native = decline
+    try:
+        kernels.reset_launches()
+        gaf_v, st_v = device_run(gi, mo_v, reads_fa, loop="python",
+                                 pool=pool)
+        launches = dict(kernels.launches)
+    finally:
+        cigar._gchain_cigar_native = real
+    if gaf_v != host_v:
+        raise AssertionError(f"-c --vc with the gap pool: GAF differs at "
+                             f"line {first_diff(gaf_v, host_v)}")
+    lens = np.array(seen, dtype=np.int64)
+    per_bucket = [int(((lens >= MIN_DEV_LEN) & (lens <= BUCKETS[0][0]))
+                      .sum()),
+                  int(((lens > BUCKETS[0][0]) & (lens <= BUCKETS[1][0]))
+                      .sum())]
+    chunks = sum(-(-c // b[2]) for c, b in zip(per_bucket, BUCKETS))
+    if pool.n_device <= 0 or launches["wfa_wave"] != chunks \
+            or launches["wfa_walk"] != chunks:
+        raise AssertionError(f"gap pool: n_device {pool.n_device}, "
+                             f"{chunks} chunks, launches {launches}")
+    log(f"phase 8 (c) -c --vc, Python reader loop, every 4th chain to the "
+        f"gap pool: GAF bytes equal to the unstubbed host-only run "
+        f"({host_v.count(chr(10))} lines); {n[0]} chains, {len(lens)} gap "
+        f"jobs: {int((lens < MIN_DEV_LEN).sum())} under {MIN_DEV_LEN} bp, "
+        f"{per_bucket[0]} in bucket {BUCKETS[0]}, {per_bucket[1]} in "
+        f"bucket {BUCKETS[1]}, {int((lens > BUCKETS[1][0]).sum())} over "
+        f"{BUCKETS[1][0]} bp (longest {int(lens.max()) if len(lens) else 0}"
+        f"); pool n_device {pool.n_device}, n_host {pool.n_host}; "
+        f"launches {launches}")
+    log(run_line("run 8 (c) -c --vc, gap pool", st_v, n_reads))
+    log(run_line("run 8 (c) -c --vc, host only", st_hv, n_reads))
+    return launches
+
+
+def wfa_exact_phase(ref, reps):
+    """Phase 8 (d): wfa_wave and wfa_walk at the pool's two buckets on
+    gap pairs cut from the reference, bitwise against the plain versions
+    on one full chunk a bucket; the CIGARs of 4096 pairs against the
+    native host engine."""
+    from minigraph_tpu_torch.align.cigar_device import BUCKETS, PENS
+    from minigraph_tpu_torch.align.wfa import WfOpt, wfa_exact
+    from minigraph_tpu_torch.ops import wfa_exact as wx
+    pairs = gap_pairs(ref, np.random.default_rng(52), WFA_PAIRS)
+    sizes = [max(len(t), len(q)) for t, q in pairs]
+    buckets = [[p for p, n in zip(pairs, sizes) if lo < n <= lmax]
+               for lo, (lmax, _, _) in zip((0, BUCKETS[0][0]), BUCKETS)]
+    res = []
+    for (lmax, s_cap, bsz), bp in zip(BUCKETS, buckets):
+        enc = wx.encode_pairs(bp[:bsz], L=lmax, device="cuda")
+        t_cap = 2 * lmax + 4
+        score, tb, _, end_d, no_ext = wx.wfa_device(
+            *enc, PENS, d_cap=lmax, s_cap=s_cap)
+        counts = {}
+        r_score, r_tb, _, r_end, r_noext = wx.wfa_device_ref(
+            *enc, PENS, d_cap=lmax, s_cap=s_cap, counts=counts)
+        err = max_abs_err([score, end_d, no_ext], [r_score, r_end, r_noext])
+        sc = score.cpu().numpy()
+        for b in range(len(sc)):
+            n = int(sc[b]) if sc[b] >= 0 else s_cap
+            if not torch.equal(tb[:n, b], r_tb[:n, b]):
+                raise AssertionError(f"wfa_wave tb of pair {b} differs")
+        ops, fi, fk = wx.wfa_tb_walk(*enc, tb, score, end_d, no_ext, PENS,
+                                     d_cap=lmax, t_cap=t_cap)
+        on_k = wx.wfa_tb_walk_ref(*enc, tb, score, end_d, no_ext, PENS,
+                                  d_cap=lmax, t_cap=t_cap)
+        on_r = wx.wfa_tb_walk_ref(*enc, r_tb, r_score, r_end, r_noext, PENS,
+                                  d_cap=lmax, t_cap=t_cap)
+        err = max(err, max_abs_err([ops, fi, fk], on_k),
+                  max_abs_err([ops, fi, fk], on_r))
+        if err:
+            raise AssertionError(f"wfa kernels differ at L={lmax}: {err}")
+        # plain times without the counters
+        t0 = time.perf_counter()
+        wx.wfa_device_ref(*enc, PENS, d_cap=lmax, s_cap=s_cap)
+        torch.cuda.synchronize()
+        plain_wave = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        wx.wfa_tb_walk_ref(*enc, r_tb, r_score, r_end, r_noext, PENS,
+                           d_cap=lmax, t_cap=t_cap)
+        torch.cuda.synchronize()
+        plain_walk = (time.perf_counter() - t0) * 1e3
+
+        def wave():
+            wx.wfa_device(*enc, PENS, d_cap=lmax, s_cap=s_cap, tb=tb)
+
+        def walk():
+            wx.wfa_tb_walk(*enc, tb, score, end_d, no_ext, PENS,
+                           d_cap=lmax, t_cap=t_cap)
+        ms_wave, g_wave = cuda_time(wave, reps), graph_time(wave, reps)
+        ms_walk, g_walk = cuda_time(walk, reps), graph_time(walk, reps)
+        B, L = enc[0].shape
+        D = 2 * lmax + 1
+        # wave: the sequences in, tb rows below each score and 9 bytes a
+        # pair out; ~20 integer operations a wave cell, 3 a compare
+        bw = bound(2 * B * L + int(sc[sc > 0].sum()) * D + 9 * B,
+                   WFA_EXACT_OPS_PER_CELL * counts["cells"]
+                   + 3 * counts["ext"])
+        # walk: the sequences, one tb byte a step and the ops out; ~12
+        # operations a step
+        steps = int((ops.cpu() > 0).sum())
+        bk = bound(2 * B * L + steps + t_cap * B + 8 * B, 12 * steps)
+        log(f"wfa_wave ({B} pairs, L={L}, D={D}, s_cap={s_cap}): bitwise "
+            f"equal (tb on rows below each score), scores {sc.min()}-"
+            f"{sc.max()}, {counts['cells']} cells, {counts['ext']} "
+            f"compares; kernel {ms_wave:.4f} ms ({g_wave:.4f} ms replayed "
+            f"from a CUDA graph), plain {plain_wave:.1f} ms, bound "
+            f"{bw[0]:.4f} ms ({bw[1]})")
+        log(f"wfa_walk ({B} pairs, t_cap={t_cap}): bitwise equal, {steps} "
+            f"steps; kernel {ms_walk:.4f} ms ({g_walk:.4f} ms replayed from "
+            f"a CUDA graph), plain {plain_walk:.1f} ms, bound {bk[0]:.4f} "
+            f"ms ({bk[1]})")
+        res.append(({"max_abs_err": err, "ms": ms_wave, "graph_ms": g_wave,
+                     "plain_ms": plain_wave, "bound_ms": bw[0],
+                     "bound_by": bw[1], "library_ms": None},
+                    {"max_abs_err": err, "ms": ms_walk, "graph_ms": g_walk,
+                     "plain_ms": plain_walk, "bound_ms": bk[0],
+                     "bound_by": bk[1], "library_ms": None}))
+    # every pair through the kernels at full batches, against the host
+    n_ok = n_over = 0
+    t_dev = 0.0
+    for (lmax, s_cap, bsz), bp in zip(BUCKETS, buckets):
+        t0 = time.perf_counter()
+        for c0 in range(0, len(bp), bsz):
+            chunk = bp[c0: c0 + bsz]
+            enc = wx.encode_pairs(chunk + [(b"A", b"A")] * (bsz - len(chunk)),
+                                  L=lmax, device="cuda")
+            score, tb, _, end_d, no_ext = wx.wfa_device(
+                *enc, PENS, d_cap=lmax, s_cap=s_cap)
+            ops, fi, fk = wx.wfa_tb_walk(*enc, tb, score, end_d, no_ext,
+                                         PENS, d_cap=lmax,
+                                         t_cap=2 * lmax + 4)
+            score, ops, fi, fk = (x.cpu().numpy()
+                                  for x in (score, ops, fi, fk))
+            t_dev += time.perf_counter() - t0
+            for k, (t, q) in enumerate(chunk):
+                host = wfa_exact(WfOpt(cigar=True), t, q)
+                if score[k] < 0:
+                    if host.s < s_cap:
+                        raise AssertionError(f"pair over budget on the "
+                                             f"card, score {host.s}")
+                    n_over += 1
+                    continue
+                cig = wx.decode_walk(ops[:, k], int(fi[k]), int(fk[k]))
+                if host.s != score[k] or cig != host.cigar:
+                    raise AssertionError(f"kernel CIGAR differs from the "
+                                         f"host engine at L={lmax}")
+                n_ok += 1
+            t0 = time.perf_counter()
+    n_long = len(pairs) - len(buckets[0]) - len(buckets[1])
+    log(f"wfa kernels on {len(pairs)} gap pairs ({len(buckets[0])} in "
+        f"bucket {BUCKETS[0]}, {len(buckets[1])} in {BUCKETS[1]}, {n_long} "
+        f"over {BUCKETS[1][0]} bp, the pool's host jobs): {n_ok} CIGARs "
+        f"equal to the native host engine's, {n_over} over the score "
+        f"budget; {t_dev * 1e3:.1f} ms on the card path (encode, kernels, "
+        f"copy back; host clock)")
+    return res
 
 
 def main() -> int:
@@ -974,7 +1262,8 @@ def main() -> int:
         for line in ptxas_lines(kernels.build_log,
                                 ("sketch_kernel", "chunked_kernel",
                                  "chain_ring_kernel", "banded_kernel",
-                                 "backtrack_kernel")):
+                                 "backtrack_kernel", "wfa_wave_kernel",
+                                 "wfa_walk_kernel")):
             log(line)
     else:
         log("ptxas: the kernel library was up to date, no build this run")
@@ -1191,8 +1480,16 @@ def main() -> int:
     wfa_launches, k7 = wfa_phase(ref, kernels, reps=5)
 
     # ---- 7. the rest of the command line: asm, sr, the Python loop
-    cli_phase(ref, gfa, work, kernels, k1_asm)
+    asm = cli_phase(ref, gfa, work, kernels, k1_asm)
     forced_python_run(gi, mo, reads_fa, host_gaf, n_reads, kernels)
+
+    # ---- 8. base-level alignment (-c)
+    mo_c = cigar_main_path(gi, mo, reads_fa, st, n_reads, kernels)
+    cigar_asm(*asm, kernels)
+    pool_launches = cigar_pool_run(gi, mo_c, reads_fa, n_reads, kernels)
+    (k_wave, k_walk), (k_wave2, k_walk2) = wfa_exact_phase(ref, reps=5)
+    log(f"2048 bucket: wfa_wave {json.dumps(k_wave2)}; wfa_walk "
+        f"{json.dumps(k_walk2)}")
 
     entries = [
         dict(name="sketch", route="cuda",
@@ -1228,6 +1525,14 @@ def main() -> int:
              replaces="minigraph_tpu/ops/backtrack_jax.py:65",
              launches=launches["backtrack"],
              **{k: v for k, v in kb.items() if k != "max_steps"}),
+        dict(name="wfa_wave", route="cuda",
+             source="minigraph_tpu_torch/csrc/wfa_exact.cu",
+             replaces="minigraph_tpu/ops/wfa_jax.py:27",
+             launches=pool_launches["wfa_wave"], **k_wave),
+        dict(name="wfa_walk", route="cuda",
+             source="minigraph_tpu_torch/csrc/wfa_exact.cu",
+             replaces="minigraph_tpu/ops/wfa_jax.py:221",
+             launches=pool_launches["wfa_walk"], **k_walk),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -1,5 +1,5 @@
 """Command line for the port's read mapping (main.c:96-301, without
-base-level alignment and graph generation).
+graph generation).
 
     python -m minigraph_tpu_torch [options] <target.gfa> <query.fa> [...]
 
@@ -13,6 +13,7 @@ Options, as minigraph's:
                          scores
   -K NUM -p FLOAT -N INT -M FLOAT -j FLOAT  mini-batch size, secondary
                          ratio, secondary count, mask level, divergence
+  -c                     base-level alignment (cg:Z, ds:Z)
   -P -D -S               all chains, skip self-diagonal hits, write
                          linear chains
   -o FILE                output file
@@ -25,7 +26,7 @@ Options, as minigraph's:
                          (default) on the card, cpu their plain versions,
                          none every read on the native host path.
 
-Refused with a message (exit 1) until the port has their stages: -c,
+Refused with a message (exit 1) until the port has their stages:
 --call, --cov, graph generation (--ggen other than --ggen=none, -x ggs
 without it, --gg-*, --ins-qovlp, --inv, -l, -d, -q, -L), --seed-device,
 --gwfa-device, --tpu, --write-mz and the --dbg-* and --no-kalloc
@@ -40,11 +41,12 @@ from typing import List, Optional
 from . import MG_VERSION_COMPAT
 from .graph.gfa_io import read_gfa
 from .mapping.mapper import map_files
-from .options import (MG_M_ALL_CHAINS, MG_M_FRAG_MERGE, MG_M_FRAG_MODE,
-                      MG_M_HEAP_SORT, MG_M_NO_COMP_PATH, MG_M_NO_DIAG,
-                      MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
-                      MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN, GGOptions,
-                      IndexOptions, MapOptions, opt_check, opt_set)
+from .options import (MG_M_ALL_CHAINS, MG_M_CIGAR, MG_M_FRAG_MERGE,
+                      MG_M_FRAG_MODE, MG_M_HEAP_SORT, MG_M_NO_COMP_PATH,
+                      MG_M_NO_DIAG, MG_M_PRINT_2ND, MG_M_RMQ,
+                      MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN,
+                      GGOptions, IndexOptions, MapOptions, opt_check,
+                      opt_set)
 from .utils.syslog import final_log, mlog
 
 _SHORT = "x:k:w:t:r:m:n:g:K:o:p:N:Pq:d:l:f:U:M:F:j:L:DSc"
@@ -62,7 +64,7 @@ _LONG = [
 ]
 # options of stages the port does not have yet
 _REFUSED = {
-    "-c": "base-level alignment", "--call": "bubble calling",
+    "--call": "bubble calling",
     "--cov": "coverage", "--write-mz": "minimizer dumps",
     "--seed-device": "the device long-query sketch",
     "--gwfa-device": "the device GWFA",
@@ -174,6 +176,8 @@ def main(argv: Optional[List[str]] = None) -> int:
             mo.div = float(v)
         elif k == "-S":
             mo.flag |= MG_M_WRITE_LCHAIN
+        elif k == "-c":
+            mo.flag |= MG_M_CIGAR
         elif k == "-U":
             mo.occ_max1, b = _parse_num2(v)
             if b is not None:

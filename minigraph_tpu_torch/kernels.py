@@ -55,6 +55,10 @@ KERNELS = {
     "wfa_banded": ("wfa_banded.cu", "mgt_cuda_wfa_banded", "ppppiiiiiiiip"),
     "backtrack": ("backtrack.cu", "mgt_cuda_backtrack",
                   "pppppiiiiiiipppppppp"),
+    "wfa_wave": ("wfa_exact.cu", "mgt_cuda_wfa_wave",
+                 "pppp" + "i" * 12 + "ppppp"),
+    "wfa_walk": ("wfa_exact.cu", "mgt_cuda_wfa_walk",
+                 "p" * 8 + "i" * 10 + "ppp"),
 }
 
 launches = {name: 0 for name in KERNELS}

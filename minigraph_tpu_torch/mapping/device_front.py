@@ -188,6 +188,9 @@ class DeviceFront:
         # device's steady cost
         self.last_submit_cold = False
         self._warm = set()
+        # the -c gap pool of the Python reader loop (align/cigar_device.py
+        # DeviceWfaPool), made by the loop at its first use
+        self._wfa_pool = None
         # the device chain applies when the chain parameters are
         # read-independent (map-algo.c:377-390): no sr/splice/rmq, no
         # frag-length-dependent ref gap; otherwise the front is
@@ -575,3 +578,7 @@ class DeviceFront:
                  f"device, {self.n_fallback} host fallbacks, "
                  f"{self.n_chain_unsure} chain-DP host reruns, "
                  f"{self.n_flat_ovf} flat-plane refetches")
+        if self._wfa_pool is not None:
+            mlog("device_front",
+                 f"device -c gap WFA: {self._wfa_pool.n_device} on "
+                 f"device, {self._wfa_pool.n_host} host")

@@ -16,7 +16,7 @@ import math
 import sys
 import threading
 from dataclasses import dataclass, field
-from typing import List
+from typing import List, Optional
 
 import numpy as np
 
@@ -48,6 +48,18 @@ class LLChain:
 
 
 @dataclass
+class Cigar:
+    """mg_cigar_t (minigraph.h:115-118)."""
+    n_cigar: int = 0
+    mlen: int = 0
+    blen: int = 0
+    aplen: int = 0
+    ss: int = 0
+    ee: int = 0
+    cigar: List[int] = field(default_factory=list)
+
+
+@dataclass
 class GChain:
     """mg_gchain_t (minigraph.h:125-138)."""
     id: int = 0
@@ -69,6 +81,8 @@ class GChain:
     n_sub: int = 0
     mapq: int = 0
     flt: int = 0
+    p: Optional[Cigar] = None     # base-level alignment (-c)
+    ds: Optional[object] = None   # its ds:Z string (align/cigar.DsString)
 
 
 @dataclass

@@ -28,6 +28,12 @@ batch cannot take on the per-read path.  A read whose native tail bails
 and written with `write_gaf`.  With device=None every read takes the
 host path; that run is the byte reference the device runs are held
 against, whatever share the controller picks.
+
+-c (base-level alignment) runs in the native batch tail's workers; on
+the per-read path `_map_frag_finish` aligns the chains (align/cigar.py),
+and in the Python reader loop with a front and an output shape the
+batch cannot write (--vc, -S) the chains the native walk cannot finish
+leave their gaps to the front's gap pool (align/cigar_device.py).
 """
 from __future__ import annotations
 
@@ -40,6 +46,9 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..align.cigar import gchain_cigar, gchain_gen_ds
+from ..align.cigar_device import (CigarSink, DeviceWfaPool, finalize_read,
+                                  harvest_read)
 from ..graph.gfa import Graph, revcomp
 from ..index.midx import MinimizerIndex, build_index
 from ..options import (MG_M_CAL_COV, MG_M_CIGAR, MG_M_FRAG_MERGE,
@@ -62,13 +71,16 @@ from .select import (gchain_drop_flt, gchain_flt_sub, gchain_set_mapq,
                      gchain_set_parent)
 
 U32 = 0xFFFFFFFF
-# options whose stages the port does not have yet: base-level alignment
-# (-c), coverage (--cov), minimizer dumps (--write-mz), spliced chains
-UNSUPPORTED_FLAGS = MG_M_CIGAR | MG_M_CAL_COV | MG_M_WRITE_MZ | MG_M_SPLICE
+# options whose stages the port does not have yet: coverage (--cov),
+# minimizer dumps (--write-mz), spliced chains
+UNSUPPORTED_FLAGS = MG_M_CAL_COV | MG_M_WRITE_MZ | MG_M_SPLICE
 # output shapes the native GAF formatter of the per-read tail does not
 # write: such reads are serialized by seqio/gaf.py
-_EMIT_BAIL_FLAGS = (MG_M_FRAG_MODE | MG_M_FRAG_MERGE | MG_M_WRITE_LCHAIN
-                    | MG_M_VERTEX_COOR)
+_EMIT_BAIL_FLAGS = (MG_M_CIGAR | MG_M_FRAG_MODE | MG_M_FRAG_MERGE
+                    | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR)
+# -c does not bail the batch: its workers run the base-level stage
+# (CIGAR and ds) natively
+_EMIT_BAIL_NOCIG = _EMIT_BAIL_FLAGS & ~MG_M_CIGAR
 # the native batch writes merged pairs too; these shapes still bail
 _EMIT_BAIL_BATCH = MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR
 
@@ -77,8 +89,10 @@ def _batch_mode_ok(flag: int) -> bool:
     """Flag shapes the native batch tail can serialize."""
     if flag & _EMIT_BAIL_BATCH:
         return False
-    if (flag & MG_M_FRAG_MODE) and not (flag & MG_M_FRAG_MERGE):
-        return False
+    if flag & MG_M_FRAG_MODE:
+        # merged pairs only; -c with fragments stays on the per-read path
+        if not (flag & MG_M_FRAG_MERGE) or (flag & MG_M_CIGAR):
+            return False
     return True
 
 
@@ -135,13 +149,16 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                   opt: MapOptions, qname: Optional[str],
                   ax: np.ndarray, ay: np.ndarray, rep_len: int,
                   mini_pos: np.ndarray, n_mv: int, chains_u=None,
+                  cigar_sink=None,
                   fast_emit: bool = False) -> gchain.GChains:
     """Per-read pipeline after seed collection (map-algo.c:377-495).
 
     ax/ay are the read's anchors, or with `chains_u` the device front's
     compacted chains (u = sc<<32|cnt per chain), which skip the linear
     chain stage.  The whole tail runs in one native call; each native
-    stage that bails hands the read to the next, more decomposed one."""
+    stage that bails hands the read to the next, more decomposed one.
+    With -c and a `cigar_sink` (align/cigar_device.py CigarSink) the gaps
+    the native walk cannot align are left to the sink's batch pool."""
     n_segs = len(qlens)
     qlen_sum = sum(qlens)
     hash_ = kh_hash_str(qname) if qname else 0
@@ -183,7 +200,8 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
             sel_args, emit)
         if gcs is not None:
             gcs.rep_len = rep_len
-            return _map_frag_finish(gi, gcs, opt, qlen_sum, n_mv)
+            return _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat,
+                                    qlen_sum, n_mv, cigar_sink)
 
     if chains_u is not None:
         # the device's chains: skip the linear chain stage
@@ -265,17 +283,27 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                                     opt.min_gc_cnt, opt.min_gc_score,
                                     opt.gdp_max_ed, n_segs, seq_cat)
     gcs.rep_len = rep_len
-    return _map_frag_finish(gi, gcs, opt, qlen_sum, n_mv)
+    return _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum,
+                            n_mv, cigar_sink)
 
 
-def _map_frag_finish(gi, gcs, opt, qlen_sum, n_mv):
-    """Selection + mapq (map-algo.c:464-475), unless the native tail
-    already selected (gcs.selected)."""
+def _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum, n_mv,
+                     cigar_sink):
+    """Selection + mapq + base alignment (map-algo.c:464-483), the
+    selection skipped where the native tail already ran it
+    (gcs.selected).  -c aligns single-segment reads only."""
     if not getattr(gcs, "selected", False):
         gchain_set_parent(opt.mask_level, gcs.gc, opt.sub_diff, 0)
         gchain_flt_sub(opt.pri_ratio, gi.k * 2, opt.best_n, gcs.gc)
         gchain_drop_flt(gcs)
         gchain_set_mapq(gcs, qlen_sum, n_mv, opt.min_gc_score)
+    if (opt.flag & MG_M_CIGAR) and n_segs == 1:
+        if cigar_sink is not None:
+            cigar_sink.pending.append(harvest_read(
+                gi.g, gi.es, seq_cat, gcs, qname, cigar_sink.jobs))
+        else:
+            gchain_cigar(gi.g, gi.es, seq_cat, gcs, qname)
+            gchain_gen_ds(gi.g, gi.es, seq_cat, gcs)
     return gcs
 
 
@@ -498,7 +526,8 @@ def _map_arena_frags(gi, opt, out, n_threads, n, sq_addr, sq_off, nm_addr,
                                  int(sq_off[fj + k + 1] - sq_off[fj + k]))
                     .decode("latin-1") for k in range(ns)]
             qlens = [len(x) for x in seqs]
-            gcs = map_frag(gi, qlens, seqs, opt, name, fast_emit=True)
+            gcs = map_frag(gi, qlens, seqs, opt, name,
+                           fast_emit=not (opt.flag & MG_M_CIGAR))
             txt = write_gaf(gi.g, gcs, ns, qlens, name, opt.flag)
             n_perread += not skip[j]
         if txt:
@@ -575,7 +604,7 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
             if txt is None:
                 name, seq = rec(k)
                 gcs = map_frag(gi, [len(seq)], [seq], opt, name,
-                               fast_emit=True)
+                               fast_emit=not (opt.flag & MG_M_CIGAR))
                 txt = write_gaf(gi.g, gcs, 1, [len(seq)], name, opt.flag)
                 n_perread += not bad[k]
             if txt:
@@ -788,7 +817,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
     frag_mode = len(fns) > 1 or bool(opt.flag & MG_M_FRAG_MODE)
     split = None
-    if front is not None and not (opt.flag & _EMIT_BAIL_FLAGS):
+    if front is not None and not (opt.flag & _EMIT_BAIL_NOCIG):
         split = getattr(front, "_split_state", None)
         if split is None:
             split = {"share": 0.35, "t_host": None, "t_dev": None}
@@ -812,7 +841,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
     fps = [BSeqFile(fn) for fn in fns]
     pe_ori = opt.pe_ori
     split_ok = (front is not None
-                and not (opt.flag & (_EMIT_BAIL_FLAGS | MG_M_HEAP_SORT
+                and not (opt.flag & (_EMIT_BAIL_NOCIG | MG_M_HEAP_SORT
                                      | MG_M_INDEPEND_SEG | MG_M_NO_DIAG)))
     if not split_ok:
         split = {"share": 0.35, "t_host": None, "t_dev": None}
@@ -917,7 +946,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             # the per-read path only for what it cannot take
             batch_txt = None
             flips_done = False
-            if front_res and not (opt.flag & _EMIT_BAIL_FLAGS):
+            if front_res and not (opt.flag & _EMIT_BAIL_NOCIG):
                 items = [(fi, batch[frags[fi][0]].name,
                           batch[frags[fi][0]].seq, fr)
                          for fi, fr in front_res.items()
@@ -973,6 +1002,12 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             if batch_txt is not None:
                 _count(stats, "n_perread", sum(
                     1 for v in batch_txt.values() if v is None))
+            # -c on the device front's reads where no batch wrote them
+            # (--vc, -S): the gaps the native walk cannot align go to one
+            # pool for the batch (align/cigar_device.py)
+            cigar_sink = None
+            if front_res and batch_txt is None and (opt.flag & MG_M_CIGAR):
+                cigar_sink = CigarSink()
 
             def compute_frag(fi, off, n_seg):
                 if not flips_done and n_seg == 2:
@@ -980,19 +1015,21 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 seqs = [batch[off + k].seq for k in range(n_seg)]
                 qlens = [len(x) for x in seqs]
                 fr = front_res.get(fi) if front_res is not None else None
+                fast = cigar_sink is None
                 if fr is not None:
                     gcs_list = [map_frag_tail(
                         gi, qlens, seqs, opt, batch[off].name, fr.ax,
                         fr.ay, fr.rep_len, fr.mini_pos, fr.n_mv,
-                        chains_u=fr.u, fast_emit=True)]
+                        chains_u=fr.u, cigar_sink=cigar_sink,
+                        fast_emit=fast)]
                 elif opt.flag & MG_M_INDEPEND_SEG:
                     gcs_list = [map_frag(gi, [qlens[k]], [seqs[k]], opt,
                                          batch[off + k].name,
-                                         fast_emit=True)
+                                         fast_emit=fast)
                                 for k in range(n_seg)]
                 else:
                     gcs_list = [map_frag(gi, qlens, seqs, opt,
-                                         batch[off].name, fast_emit=True)]
+                                         batch[off].name, fast_emit=fast)]
                 return qlens, gcs_list
 
             def emit_frag(off, n_seg, qlens, gcs_list):
@@ -1010,7 +1047,16 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
             todo = [fi for fi in range(len(frags))
                     if batch_txt is None or batch_txt.get(fi) is None]
-            if front is not None and n_threads > 1 and len(todo) > 1:
+            if cigar_sink is not None:
+                # harvest every read, align the batch's pooled gaps once,
+                # then stitch each read's CIGARs and ds strings
+                done = {fi: compute_frag(fi, *frags[fi]) for fi in todo}
+                if front._wfa_pool is None:
+                    front._wfa_pool = DeviceWfaPool(device=front.device)
+                res = front._wfa_pool.run(cigar_sink.jobs)
+                for pr in cigar_sink.pending:
+                    finalize_read(pr, res)
+            elif front is not None and n_threads > 1 and len(todo) > 1:
                 # the native tails release the GIL, so the per-read path
                 # scales over threads; emission stays in input order
                 with ThreadPoolExecutor(

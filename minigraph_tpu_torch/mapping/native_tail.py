@@ -9,7 +9,9 @@ mgt_select_chains and mgt_format_gaf.  A read arrives with the device
 front's compacted chains (mode 3), with its raw anchors from a
 seed-only front, or runs the native seed collection inside the worker
 (mgt_collect); the last two chain in mode 1 (banded DP) or mode 2
-(RMQ).  The JAX package's mode 0 (the front's f and p, backtracked on
+(RMQ).  With -c the workers also run the base-level stage (the anchor
+walk, an exact WFA a gap, the ds string; native/mgt_cigar.c).  The JAX
+package's mode 0 (the front's f and p, backtracked on
 the host) is not taken: no front of either package produces it.
 """
 from __future__ import annotations
@@ -18,9 +20,10 @@ import ctypes as ct
 
 import numpy as np
 
-from ..options import (MG_M_FRAG_MERGE, MG_M_HEAP_SORT, MG_M_NO_COMP_PATH,
-                       MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
-                       MG_M_SPLICE, MG_M_SR, MG_MAX_SHORT_K)
+from ..options import (MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_HEAP_SORT,
+                       MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_RMQ,
+                       MG_M_SHOW_UNMAP, MG_M_SPLICE, MG_M_SR,
+                       MG_MAX_SHORT_K)
 from ..utils.hashes import expf
 from ..utils.native import get_lib
 
@@ -395,6 +398,14 @@ def map_batch_native(gi, opt, items, n_threads: int,
     frag_args = (int(bool(opt.flag & MG_M_HEAP_SORT)),
                  n_seg_arr.ctypes.data if any_frag else None,
                  seg_mid.ctypes.data if any_frag else None)
+    cig_args = (0, None)
+    if opt.flag & MG_M_CIGAR:
+        # -c: the workers align and write cg:Z/ds:Z themselves, reading
+        # every segment's fwd/rc bytes through this pointer table (the
+        # cast holds it through the call; imported here: align.cigar
+        # imports mapping.gchain, which imports this module)
+        from ..align.cigar import _es_tables
+        cig_args = (1, ct.cast(_es_tables(gi.es)[0], ct.c_void_p))
     total = lib.mgt_map_tail_batch(
         n, max(1, n_threads), P.ctypes.data, PD.ctypes.data,
         mode.ctypes.data, n_a.ctypes.data, axp.ctypes.data,
@@ -404,7 +415,7 @@ def map_batch_native(gi, opt, items, n_threads: int,
         rep_len.ctypes.data, mdx.ctypes.data, mdy.ctypes.data,
         *col_args,
         *frag_args,
-        0, None,                # no -c
+        *cig_args,
         qseq_blob, qseq_off.ctypes.data,
         qname_blob, qname_off.ctypes.data,
         qname_len.ctypes.data if qname_len is not None else None,

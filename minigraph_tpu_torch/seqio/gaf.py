@@ -1,13 +1,13 @@
 """GAF record serialization of the per-read path (mg_write_gaf,
-format.c:121-291) without base-level alignment (the port refuses -c):
-stable-sequence or vertex (--vc) coordinates, merged fragments (ql:B:i)
-and the -S linear-chain lines."""
+format.c:121-291): stable-sequence or vertex (--vc) coordinates, merged
+fragments (ql:B:i), the base-level fields of -c (NM:i, cg:Z, ds:Z) and
+the -S linear-chain lines."""
 from __future__ import annotations
 
 import math
 from typing import List, Optional
 
-from ..graph.gfa import Graph
+from ..graph.gfa import COMP_TABLE, Graph
 from ..mapping.gchain import GChains
 from ..options import (MG_M_FRAG_MERGE, MG_M_NO_COMP_PATH, MG_M_PRINT_2ND,
                        MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN)
@@ -54,6 +54,7 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
         if p.cnt == 0:
             continue
         s: List[str] = [f"{name}\t{qlen}\t{p.qs}\t{p.qe}\t+\t"]
+        rev_sign = 0
         if flag & MG_M_VERTEX_COOR:
             compact = 0
             for j in range(p.cnt):
@@ -107,6 +108,7 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
             ps = g.sseq[t.snid]
             s.append(f"{ps.name}\t{ps.max}\t")
             if rev:
+                rev_sign = 1
                 s[0] = s[0][:-2] + "-\t"  # flip the strand sign
                 s.append(f"{t.soff + (p.plen - p.pe)}"
                          f"\t{t.soff + (p.plen - p.ps)}")
@@ -114,18 +116,61 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
                 s.append(f"{t.soff + p.ps}\t{t.soff + p.pe}")
         else:
             s.append(f"\t{p.plen}\t{p.ps}\t{p.pe}")
-        s.append(f"\t{p.mlen}\t{p.blen}\t{p.mapq}")
+        if p.p is not None:
+            s.append(f"\t{p.p.mlen}\t{p.p.blen}\t{p.mapq}")
+        else:
+            s.append(f"\t{p.mlen}\t{p.blen}\t{p.mapq}")
         s.append(f"\ttp:A:{'P' if p.id == p.parent else 'S'}")
+        if p.p is not None:
+            s.append(f"\tNM:i:{p.p.blen - p.p.mlen}")
         s.append(f"\tcm:i:{p.n_anchor}\ts1:i:{p.score}\ts2:i:{p.subsc}")
         if 0.0 <= p.div <= 1.0:
             s.append(f"\tdv:f:{_fmt_div(p.div)}")
         if n_seg > 1:
             s.append("\tql:B:i" + "".join(f",{x}" for x in qlens))
+        if p.p is not None:
+            _write_cigar(s, p, rev_sign)
         s.append("\n")
         if flag & MG_M_WRITE_LCHAIN:
             _write_lchain_lines(s, g, gs, p)
         out.append("".join(s))
     return "".join(out)
+
+
+def _write_cigar(s: List[str], p, rev_sign: int) -> None:
+    """cg:Z and ds:Z of a chain, both reversed on the minus strand of a
+    stable-sequence path (mg_write_gaf)."""
+    ops = "MIDNSHP=XB"
+    s.append("\tcg:Z:")
+    rng = range(p.p.n_cigar - 1, -1, -1) if rev_sign \
+        else range(p.p.n_cigar)
+    for j in rng:
+        c = p.p.cigar[j]
+        s.append(f"{c >> 4}{ops[c & 0xF]}")
+    if p.ds is None or not p.ds.ds:
+        return
+    s.append("\tds:Z:")
+    if not rev_sign:
+        s.append(p.ds.ds)
+        return
+    ds = p.ds.ds
+    for i in range(p.ds.n_off - 1, -1, -1):
+        off = p.ds.off[i]
+        s.append(ds[off])
+        en2 = p.ds.off[i + 1] if i < p.ds.n_off - 1 else p.ds.len
+        if ds[off] == ":":
+            s.append(ds[off + 1: en2])
+        elif ds[off] == "*":
+            s.append("".join(chr(COMP_TABLE[ord(c)])
+                             for c in ds[off + 1: en2]))
+        else:
+            for j in range(en2 - 1, off, -1):
+                if ds[j] == "[":
+                    s.append("]")
+                elif ds[j] == "]":
+                    s.append("[")
+                else:
+                    s.append(chr(COMP_TABLE[ord(ds[j])]))
 
 
 def _write_lchain_lines(s: List[str], g: Graph, gs: GChains, p) -> None:

@@ -716,3 +716,106 @@ def test_seed_only_front_on_card(card, tmp_path, preset):
         outs[dev] = buf.getvalue()
     assert outs["cuda"] == outs[None]
     assert outs[None].count("\n") >= 20
+
+
+def wfa_gap_pairs(rng, n, lo, hi):
+    """Gap pairs of lo-hi bp: 2% substitutions, 1% indels of 1-3 bp,
+    every 5th query cut short by 20-80 bp, an exact pair, a homopolymer
+    against one base."""
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    pairs = [(b"ACGT" * (lo // 4), b"ACGT" * (lo // 4)),
+             (b"A", b"T" * lo)]
+    for k in range(n - 2):
+        t = rng.choice(acgt, int(rng.integers(lo, hi + 1)))
+        q = t.copy()
+        sub = rng.random(len(q)) < 0.02
+        q[sub] = rng.choice(acgt, int(sub.sum()))
+        for pos in sorted(rng.choice(len(q), len(q) // 100, replace=False),
+                          reverse=True):
+            q = np.insert(q, pos, rng.choice(acgt, 2)) if pos % 2 \
+                else np.delete(q, pos)
+        if k % 5 == 4:
+            q = q[: len(q) - int(rng.integers(20, 81))]
+        pairs.append((t.tobytes(), q[:hi].tobytes()))
+    return pairs
+
+
+@pytest.mark.parametrize("lmax,s_cap,B", [(192, 400, 24), (768, 1024, 64),
+                                          (2048, 3072, 16), (192, 60, 24)])
+def test_wfa_exact_kernels_match_ref(card, lmax, s_cap, B):
+    """wfa_wave and wfa_walk against the plain versions: score, end_d,
+    no_ext, ops and fin_i/fin_k whole, tb on the rows below each score;
+    the walk on the kernel's tb and on the plain version's; at the last
+    shape a score budget some pairs exceed."""
+    from minigraph_tpu_torch.ops import wfa_exact as wx
+    pens = (4, 4, 2, 15, 1)
+    pairs = wfa_gap_pairs(np.random.default_rng(lmax + s_cap), B, lmax // 3,
+                      lmax)
+    enc = wx.encode_pairs(pairs, L=lmax, device="cuda")
+    kernels.reset_launches()
+    got = wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=s_cap)
+    ref = wx.wfa_device_ref(*enc, pens, d_cap=lmax, s_cap=s_cap)
+    assert kernels.launches["wfa_wave"] == 1
+    for i in (0, 2, 3, 4):
+        assert torch.equal(got[i], ref[i]), i
+    score = got[0].cpu()
+    assert (score >= 0).any()
+    if s_cap == 60:
+        assert (score < 0).any()
+    for b in range(B):
+        n = int(score[b]) if score[b] >= 0 else s_cap
+        assert torch.equal(got[1][:n, b], ref[1][:n, b]), b
+    t_cap = 2 * lmax + 4
+    walk = wx.wfa_tb_walk(*enc, got[1], got[0], got[3], got[4], pens,
+                          d_cap=lmax, t_cap=t_cap)
+    assert kernels.launches["wfa_walk"] == 1
+    for tb_src in (got, ref):
+        want = wx.wfa_tb_walk_ref(*enc, tb_src[1], tb_src[0], tb_src[3],
+                                  tb_src[4], pens, d_cap=lmax, t_cap=t_cap)
+        for a, b in zip(walk, want):
+            assert torch.equal(a, b)
+    # a second call reuses the tb plane and gives the same results
+    again = wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=s_cap, tb=got[1])
+    assert again[1] is got[1] and torch.equal(again[0], got[0])
+
+
+def test_wfa_exact_kernels_edges(card):
+    """Empty and one-base sequences, a query of pads' length, and
+    malformed shapes refused."""
+    from minigraph_tpu_torch.ops import wfa_exact as wx
+    pens = (4, 4, 2, 15, 1)
+    pairs = [(b"A", b"A"), (b"A", b"C"), (b"", b"ACGT"), (b"ACGT", b""),
+             (b"AC" * 32, b"CA" * 32), (b"T" * 64, b"T" * 64)]
+    enc = wx.encode_pairs(pairs, L=64, device="cuda")
+    got = wx.wfa_device(*enc, pens, d_cap=64, s_cap=200)
+    ref = wx.wfa_device_ref(*enc, pens, d_cap=64, s_cap=200)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(got[i], ref[i]), i
+    walk = wx.wfa_tb_walk(*enc, got[1], got[0], got[3], got[4], pens,
+                          d_cap=64, t_cap=132)
+    want = wx.wfa_tb_walk_ref(*enc, ref[1], ref[0], ref[3], ref[4], pens,
+                              d_cap=64, t_cap=132)
+    for a, b in zip(walk, want):
+        assert torch.equal(a, b)
+    with pytest.raises(ValueError):
+        wx.wfa_device(enc[0], enc[1], enc[2][:, :10], enc[3], pens,
+                      d_cap=64, s_cap=200)
+    with pytest.raises(ValueError):
+        wx.wfa_device(*enc, pens, d_cap=64, s_cap=200, tb=got[1][:10])
+
+
+def test_gap_pool_on_card_matches_cpu(card):
+    """DeviceWfaPool on the card against the same pool on the CPU (its
+    plain versions), result for result, with the launches counted."""
+    from minigraph_tpu_torch.align.cigar_device import DeviceWfaPool
+    rng = np.random.default_rng(3)
+    jobs = wfa_gap_pairs(rng, 40, 40, 200) + [(b"ACGT" * 10, b"AC")]
+    buckets = ((64, 80, 8), (192, 240, 8))
+    pool = DeviceWfaPool(buckets=buckets, device="cuda")
+    kernels.reset_launches()
+    got = pool.run(jobs)
+    cpu = DeviceWfaPool(buckets=buckets, device="cpu")
+    assert got == cpu.run(jobs)
+    assert (pool.n_device, pool.n_host) == (cpu.n_device, cpu.n_host)
+    assert pool.n_device > 0
+    assert kernels.launches["wfa_wave"] == kernels.launches["wfa_walk"] > 0

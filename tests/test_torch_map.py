@@ -132,6 +132,6 @@ def test_cli_matches_host_path(files):
 
 
 def test_unsupported_options_raise(files):
-    from minigraph_tpu_torch.options import MG_M_CIGAR
+    from minigraph_tpu_torch.options import MG_M_CAL_COV
     with pytest.raises(NotImplementedError):
-        port_gaf(files, None, MG_M_CIGAR)
+        port_gaf(files, None, MG_M_CAL_COV)

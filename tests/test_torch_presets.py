@@ -110,6 +110,14 @@ CASES = {
                     "--no-comp-path", "--show-unmap=yes"], None, ["r"]),
     "frag": (["--frag"], None, ["r1", "r2"]),
     "sr_vc": (["-xsr", "--vc"], None, ["r1", "r2"]),
+    # base-level alignment: cg:Z and ds:Z
+    "cigar": (["-c"], None, ["r"]),
+    "cigar_asm": (["-cxasm"], None, ["asm"]),
+    "cigar_se": (["-cxse"], None, ["r1"]),
+    "cigar_sr": (["-cxsr"], None, ["r1", "r2"]),
+    "cigar_vc": (["-c", "--vc"], None, ["r"]),
+    "cigar_lchain": (["-c", "-S"], None, ["r"]),
+    "cigar_frag": (["-c", "--frag"], None, ["r1", "r2"]),
 }
 
 
@@ -156,7 +164,7 @@ def test_cli_output_file_and_version(files, tmp_path):
         run(jax_cli.main, ["--version"])[:2]
 
 
-REFUSED = [["-c"], ["--call"], ["--cov"], ["--ggen"], ["--ggen=simple"],
+REFUSED = [["--call"], ["--cov"], ["--ggen"], ["--ggen=simple"],
            ["-xggs"], ["--gg-min-end-cnt", "5"], ["--gg-min-end-frac", "0.1"],
            ["--gg-match-pen", "10"], ["--ins-qovlp=yes"], ["--inv=no"],
            ["-l", "10k"], ["-d", "10k"], ["-q", "5"], ["-L", "50"],
@@ -164,15 +172,35 @@ REFUSED = [["-c"], ["--call"], ["--cov"], ["--ggen"], ["--ggen=simple"],
            ["--no-kalloc"], ["--dbg-seed"], ["--dbg-lchain"], ["--dbg-gc1"],
            ["--dbg-shortk"], ["--dbg-qname"], ["--dbg-insert"],
            ["--dbg-lc-prof"], ["--dbg-mwf-long"], ["--dbg-mwf-seq"]]
+# -c is accepted (CASES "cigar"); with graph generation, the device GWFA,
+# bubble calling or coverage it is refused, the message naming the other
+# option (the id stays "-c")
+REFUSED_WITH_C = [["-c", "-xggs"], ["-c", "--ggen=simple"],
+                  ["-c", "--gwfa-device"], ["-c", "--call"], ["-c", "--cov"]]
 
 
-@pytest.mark.parametrize("argv", REFUSED, ids=lambda a: a[0])
+def _refused_name(argv):
+    opt = argv[1] if argv[0] == "-c" else argv[0]
+    return opt.split("=")[0] if opt != "-xggs" else "-x ggs"
+
+
+@pytest.mark.parametrize("argv", REFUSED + REFUSED_WITH_C[:1],
+                         ids=lambda a: a[0])
 def test_refused_options_exit_1(files, argv):
     rc, out, err = run(cli.main, ["--device", "none"] + argv
                        + [files["g"], files["r"]])
     assert rc == 1 and out == ""
-    name = argv[0].split("=")[0] if argv[0] != "-xggs" else "-x ggs"
-    assert "[ERROR]" in err and name in err, err
+    assert "[ERROR]" in err and _refused_name(argv) in err, err
+    assert "not supported by the port" in err
+
+
+@pytest.mark.parametrize("argv", REFUSED_WITH_C[1:],
+                         ids=lambda a: "-c " + a[1])
+def test_refused_with_cigar_exit_1(files, argv):
+    rc, out, err = run(cli.main, ["--device", "none"] + argv
+                       + [files["g"], files["r"]])
+    assert rc == 1 and out == ""
+    assert "[ERROR]" in err and _refused_name(argv) in err, err
     assert "not supported by the port" in err
 
 
