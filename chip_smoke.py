@@ -97,11 +97,27 @@ Phases, in order; any failure exits non-zero:
    reference: one full chunk a bucket bitwise against the plain
    versions (tb on the rows below each score; the walk on the kernel's
    and the plain tb), timed, and the CIGARs of 4096 pairs against the
-   native host engine's.
+   native host engine's;
+9. the device GWFA bridge pool (--gwfa-device): (a) the bridge jobs of
+   phase 4's reads harvested through the native hook (mode 1, every job
+   then bridged by the inline host engine: GAF bytes equal to the
+   host-only run), counted a query bucket (<= 256, <= 1024, longer), and
+   the gwfa kernel (csrc/gwfa.cu) bitwise against its plain version
+   (ops/gwfa.py gwfa_batch_ref) on one full chunk of 16 jobs a bucket,
+   timed; (b) phase 4's reads mapped with the pool on the card, (1) the
+   front pinned at share 0, one pool call a read, and (2) no front, one
+   pool call a batch (GwfaBatchSink), each held to the host-only GAF
+   bytes and printing the jobs, n_device (> 0), flagged, oversize, the
+   kernel's launches and reads/s;
+10. graph generation on the host: -cxggs -l10k on the phase 4 graph
+   with two make_haplotype samples cut into contigs (the segments and
+   arcs it adds, > 0), -xasm --call -l10k of a third sample on the new
+   graph (its BED lines), then phase 4's reads on the new graph with the
+   front pinned, held to the host-only GAF bytes on that graph.
 
 After the build it prints ptxas' registers, stack frame and spills of
-the sketch, chunked-chain, ring-chain, banded-score, backtrack and
-exact-WFA kernels.  Prints the kernels' JSON line,
+the sketch, chunked-chain, ring-chain, banded-score, backtrack,
+exact-WFA and GWFA kernels.  Prints the kernels' JSON line,
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -132,6 +148,11 @@ WFA_WA, WFA_PAIRS = 32, 4096
 # and two adds for the gap planes, three for H, the tb byte's compares
 WFA_EXACT_OPS_PER_CELL = 20
 PROBE_OPS_PER_PAIR = 18     # the 9-term distance: 9 multiplies, 9 adds
+# one GWFA state a step or hop wave: decode vd, the bound tests, three
+# children with their pushes, the boundary and target tests, and its
+# share of the candidate sort, the dedup and the forbidden-set search
+GWFA_OPS_PER_STATE = 60
+GWFA_OPS_PER_COMPARE = 2    # one extension compare: load and test
 # bench.py bench_stage's shape of the batched map step
 STEP_B, STEP_PAD = 512, 2048
 STEP_KW = dict(acap=512, qcap=384, window=32, b_chunk=64, occ_cap=16)
@@ -1221,6 +1242,211 @@ def wfa_exact_phase(ref, reps):
     return res
 
 
+class HarvestPool:
+    """A GWFA pool that records the jobs the native hook harvests (mode
+    1) and returns -2 for each, so the inline host engine bridges them
+    all (mode 2)."""
+
+    def __init__(self):
+        self.jobs = []
+
+    def run_multi(self, rows, qbufs):
+        from minigraph_tpu_torch.align.gwfa_device import WCAP
+        for r, qb in zip(rows, qbufs):
+            self.jobs.append((qb[r[0]: r[1]].tobytes(),
+                              *(int(x) for x in r[2:7])))
+        n = len(rows)
+        return (np.full(n, -2, dtype=np.int64),
+                np.full((n, WCAP), -1, dtype=np.int32),
+                np.zeros(n, dtype=np.int64))
+
+
+def gwfa_kernel_check(gd, jobs, qcap, reps, J=None):
+    """The gwfa kernel on J jobs (default one chunk of 16) against the
+    plain version on the card, bitwise; events, CUDA-graph and plain
+    times, the bound from the plain run's counted work."""
+    from minigraph_tpu_torch.align.gwfa_device import J_BUCKET, WCAP
+    from minigraph_tpu_torch.ops import gwfa as gw
+    J = J_BUCKET if J is None else J
+    args = gw.pack_jobs(jobs[:J], qcap, J, "cuda")
+    got = gw.gwfa_batch(gd, *args)
+    counts = {}
+    t0 = time.perf_counter()
+    ref = gw.gwfa_batch_ref(gd, *args, counts=counts)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    keys = ("s", "flags", "walk", "n_walk")
+    err = max_abs_err([got[k] for k in keys], [ref[k] for k in keys])
+    if err:
+        raise AssertionError(f"gwfa kernel differs at qcap {qcap}: {err}")
+    ms = cuda_time(lambda: gw.gwfa_batch(gd, *args), reps)
+    graph_ms = graph_time(lambda: gw.gwfa_batch(gd, *args), reps)
+    # bytes: the query and the job fields in, the compared graph bases
+    # (int32, as the JAX layout keeps them), the outputs
+    nbytes = 4 * (J * qcap + 6 * J + counts["ext"] + J * (3 + WCAP))
+    ops = GWFA_OPS_PER_STATE * counts["states"] \
+        + GWFA_OPS_PER_COMPARE * counts["ext"]
+    b_ms, b_by = bound(nbytes, ops)
+    n = min(len(jobs), J)
+    flags = ref["flags"].cpu().tolist()[:n]
+    log(f"gwfa ({J}, {qcap}): bitwise equal, {n} jobs "
+        f"({sum(f == 0 for f in flags)} unflagged, "
+        f"{int((ref['s'][:n] >= 0).sum())} found, flags {flags}); kernel "
+        f"{ms:.4f} ms ({graph_ms:.4f} ms replayed from a CUDA graph), plain "
+        f"{plain:.1f} ms, bound {b_ms:.5f} ms ({b_by}: {counts['states']} "
+        f"states, {counts['ext']} compares)")
+    return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
+            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+
+
+def gwfa_map_run(gi, mo, reads_fa, front):
+    """Phase 4's reads mapped with a DeviceGwfaPool on the card, with the
+    front pinned at share 0 (one pool call a read) or without a front
+    (one call a batch).  Returns (GAF, stats, pool, launches)."""
+    from minigraph_tpu_torch import kernels
+    from minigraph_tpu_torch.align.gwfa_device import DeviceGwfaPool
+    from minigraph_tpu_torch.mapping.device_front import DeviceFront
+    from minigraph_tpu_torch.mapping.mapper import map_reads
+    fr = None
+    if front:
+        fr = DeviceFront(gi, mo, device="cuda")
+        fr._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    pool = DeviceGwfaPool(gi, device="cuda")
+    pool.graph()
+    buf, st = io.StringIO(), {}
+    kernels.reset_launches()
+    map_reads(gi, mo, [reads_fa], buf, 8, fr, st, gwfa_pool=pool)
+    torch.cuda.synchronize()
+    return buf.getvalue(), st, pool, dict(kernels.launches)
+
+
+def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
+    """Phase 9: (a) the harvest and the kernel checks, (b) the two pool
+    routes.  Returns (the 256 bucket's kernel numbers, the launches of
+    run (b1))."""
+    from minigraph_tpu_torch.align.gwfa_device import (J_BUCKET,
+                                                       DeviceGwfaPool,
+                                                       QCAP_BUCKETS)
+    from minigraph_tpu_torch.mapping.mapper import map_reads
+    from minigraph_tpu_torch.tools.synth import bridge_jobs
+    t0 = time.perf_counter()
+    harvest = HarvestPool()
+    buf = io.StringIO()
+    map_reads(gi, mo, [reads_fa], buf, 8, None, {}, gwfa_pool=harvest)
+    if buf.getvalue() != host_gaf:
+        raise AssertionError("GAF of the harvest run differs at line "
+                             f"{first_diff(buf.getvalue(), host_gaf)}")
+    lens = np.array([len(j[0]) for j in harvest.jobs])
+    per = [[j for j in harvest.jobs if lo < len(j[0]) <= hi]
+           for lo, hi in zip((0,) + QCAP_BUCKETS[:-1], QCAP_BUCKETS)]
+    log(f"phase 9 (a) harvest (hook mode 1, host engine bridges): GAF "
+        f"bytes equal to the host-only run, {len(lens)} bridge jobs in "
+        f"{time.perf_counter() - t0:.1f} s: {len(per[0])} of <= 256 bp, "
+        f"{len(per[1])} of 257-1024 bp, {int((lens > 1024).sum())} "
+        f"longer, {int((lens == 0).sum())} empty (longest "
+        f"{int(lens.max()) if len(lens) else 0})")
+    # one full chunk a bucket: the harvested jobs, topped up with
+    # bridge-shaped jobs on the same graph (tools/synth.py)
+    rng = np.random.default_rng(53)
+    res = []
+    gd = DeviceGwfaPool(gi, device="cuda").graph()
+    for jobs, lo, qcap in zip(per, (0,) + QCAP_BUCKETS[:-1], QCAP_BUCKETS):
+        n_h = min(len(jobs), J_BUCKET)
+        jobs = jobs[:J_BUCKET]
+        while len(jobs) < J_BUCKET:
+            jobs += [j for j in bridge_jobs(gi.g, gi.es, rng, 64, 8, qcap)
+                     if len(j[0]) > lo][: J_BUCKET - len(jobs)]
+        log(f"gwfa chunk of bucket {qcap}: {n_h} harvested jobs, "
+            f"{J_BUCKET - n_h} synthetic")
+        res.append(gwfa_kernel_check(gd, jobs, qcap, reps=5))
+    # the launch shape of run (b2): every harvested job of the 256 bucket
+    # in one batch, padded to a multiple of 16
+    if len(per[0]) > J_BUCKET:
+        gwfa_kernel_check(gd, per[0], QCAP_BUCKETS[0], reps=3,
+                          J=J_BUCKET * -(-len(per[0]) // J_BUCKET))
+
+    launches = None
+    for name, front in (("(b1) front pinned, one pool call a read", True),
+                        ("(b2) no front, one pool call a batch", False)):
+        gaf, st, pool, lc = gwfa_map_run(gi, mo, reads_fa, front)
+        if gaf != host_gaf:
+            raise AssertionError(f"phase 9 {name}: GAF differs at line "
+                                 f"{first_diff(gaf, host_gaf)}")
+        if pool.n_device <= 0 or lc["gwfa"] <= 0 \
+                or lc["gwfa"] != pool.n_batches:
+            raise AssertionError(f"phase 9 {name}: n_device "
+                                 f"{pool.n_device}, {pool.n_batches} pool "
+                                 f"batches, launches {lc}")
+        if front and min(lc["sketch"], lc["chain_exact"],
+                         lc["backtrack"]) <= 0:
+            raise AssertionError(f"phase 9 {name}: front launches {lc}")
+        log(f"phase 9 {name}: GAF bytes equal to the host-only run; "
+            f"{pool.n_jobs} jobs, n_device {pool.n_device}, "
+            f"{pool.n_flagged} flagged to the host, {pool.n_oversize} "
+            f"oversize; {pool.n_batches} pool batches, their kernel time "
+            f"{pool.kernel_ms:.4f} ms (CUDA events on the pool's stream); "
+            f"launches {lc}")
+        log(run_line(f"run 9 {name}", st, n_reads))
+        if launches is None:
+            launches = lc
+    return res[0], launches
+
+
+def ggen_phase(ref, gfa, work, reads_fa, n_reads):
+    """Phase 10: -cxggs -l10k with two samples on the phase 4 graph,
+    -xasm --call -l10k of a third on the new graph, then phase 4's reads
+    on the new graph, front pinned, against host only."""
+    from minigraph_tpu_torch import cli
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.options import IndexOptions, MapOptions
+    from minigraph_tpu_torch.tools.synth import (cut_contigs, make_haplotype,
+                                                 write_fasta)
+    samples, n_bp = [], []
+    for i, seed in enumerate((60, 62, 64)):
+        fa = str(work / f"sample{i}.fa")
+        ctg = cut_contigs(make_haplotype(ref, seed=seed), seed=seed + 1)
+        write_fasta(fa, ctg)
+        samples.append(fa)
+        n_bp.append(sum(len(x) for _, x in ctg))
+    out_gfa, bed = str(work / "ggs.gfa"), str(work / "call.bed")
+    t0 = time.perf_counter()
+    rc = cli.main(["-cxggs", "-l10k", "-t8", "-o", out_gfa, gfa,
+                   samples[0], samples[1]])
+    t_ggs = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    rc2 = cli.main(["-xasm", "--call", "-l10k", "-t8", "-o", bed, out_gfa,
+                    samples[2]])
+    t_call = time.perf_counter() - t0
+    if rc or rc2:
+        raise AssertionError(f"phase 10: -cxggs exit {rc}, --call {rc2}")
+
+    def count(path, tag):
+        return sum(1 for ln in open(path) if ln.startswith(tag))
+    d_seg = count(out_gfa, "S\t") - count(gfa, "S\t")
+    d_arc = count(out_gfa, "L\t") - count(gfa, "L\t")
+    n_bed = sum(1 for _ in open(bed))
+    if d_seg <= 0 or d_arc <= 0:
+        raise AssertionError(f"-cxggs added {d_seg} segments, {d_arc} arcs")
+    log(f"phase 10 -cxggs -l10k, two samples of {n_bp[0]} and {n_bp[1]} "
+        f"bp in contigs: {t_ggs:.1f} s, "
+        f"{d_seg} segments and {d_arc} arcs added; -xasm --call -l10k of a "
+        f"third sample: {t_call:.1f} s, {n_bed} BED lines")
+    io_, mo = IndexOptions(), MapOptions()
+    g2 = read_gfa(out_gfa)
+    gi2 = build_index(g2, io_.k, io_.w, mo)
+    host2, st_h = host_run(gi2, mo, [reads_fa])
+    gaf2, st_d = device_run(gi2, mo, reads_fa)
+    if gaf2 != host2:
+        raise AssertionError(f"phase 10: GAF on the new graph differs at "
+                             f"line {first_diff(gaf2, host2)}")
+    log(f"phase 10 phase 4's reads on the new graph, front pinned: GAF "
+        f"bytes equal to the host-only run on it ({host2.count(chr(10))} "
+        f"lines)")
+    log(run_line("run 10 device path, new graph", st_d, n_reads))
+    log(run_line("run 10 host only, new graph", st_h, n_reads))
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -1263,7 +1489,7 @@ def main() -> int:
                                 ("sketch_kernel", "chunked_kernel",
                                  "chain_ring_kernel", "banded_kernel",
                                  "backtrack_kernel", "wfa_wave_kernel",
-                                 "wfa_walk_kernel")):
+                                 "wfa_walk_kernel", "gwfa_kernel")):
             log(line)
     else:
         log("ptxas: the kernel library was up to date, no build this run")
@@ -1491,6 +1717,12 @@ def main() -> int:
     log(f"2048 bucket: wfa_wave {json.dumps(k_wave2)}; wfa_walk "
         f"{json.dumps(k_walk2)}")
 
+    # ---- 9. the device GWFA bridge pool
+    k_gwfa, gwfa_launches = gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads)
+
+    # ---- 10. graph generation, bubble calls, mapping on the new graph
+    ggen_phase(ref, gfa, work, reads_fa, n_reads)
+
     entries = [
         dict(name="sketch", route="cuda",
              source="minigraph_tpu_torch/csrc/sketch.cu",
@@ -1533,6 +1765,10 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/wfa_exact.cu",
              replaces="minigraph_tpu/ops/wfa_jax.py:221",
              launches=pool_launches["wfa_walk"], **k_walk),
+        dict(name="gwfa", route="cuda",
+             source="minigraph_tpu_torch/csrc/gwfa.cu",
+             replaces="minigraph_tpu/ops/gwfa_jax.py:189",
+             launches=gwfa_launches["gwfa"], library_ms=None, **k_gwfa),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

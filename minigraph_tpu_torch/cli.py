@@ -1,10 +1,10 @@
-"""Command line for the port's read mapping (main.c:96-301, without
-graph generation).
+"""Command line of the port (main.c:96-301): read mapping, graph
+generation, bubble calling and coverage.
 
     python -m minigraph_tpu_torch [options] <target.gfa> <query.fa> [...]
 
 Options, as minigraph's:
-  -x STR   preset: lr (default), asm, sr, se, ggs (only with --ggen=none)
+  -x STR   preset: lr (default), asm, sr, se, ggs
   -k INT -w INT          k-mer size and minimizer window
   -t INT                 host threads
   -f FLOAT -U INT[,INT]  occurrence thresholds
@@ -22,15 +22,22 @@ Options, as minigraph's:
   --max-gap-pre NUM --max-lc-skip INT --max-gc-skip INT
   --max-lc-iter NUM --max-rmq-size NUM --gdp-max-ed NUM
   --cap-calloc NUM --min-cov-blen NUM --min-cov-mapq INT --version
+  --ggen[=simple|none] -l NUM -d NUM -q INT -L INT --gg-min-end-cnt INT
+  --gg-min-end-frac FLOAT --gg-match-pen INT --ins-qovlp=yes|no
+  --inv=yes|no           graph generation (rGFA to -o or stdout)
+  --call                 bubble calls of one assembly (BED)
+  --cov                  segment and link coverage written into the GFA
+                         (dc:f; with graph generation, the assemblies'
+                         cf:f)
   --device cuda|cpu|none  where the seed (and chain) stages run: cuda
                          (default) on the card, cpu their plain versions,
                          none every read on the native host path.
+  --gwfa-device          bridge the graph chains with the device GWFA
+                         pool: on the card with --device cuda or none,
+                         its plain version with --device cpu.
 
 Refused with a message (exit 1) until the port has their stages:
---call, --cov, graph generation (--ggen other than --ggen=none, -x ggs
-without it, --gg-*, --ins-qovlp, --inv, -l, -d, -q, -L), --seed-device,
---gwfa-device, --tpu, --write-mz and the --dbg-* and --no-kalloc
-dumps.
+--seed-device, --tpu, --write-mz and the --dbg-* and --no-kalloc dumps.
 """
 from __future__ import annotations
 
@@ -39,12 +46,16 @@ import sys
 from typing import List, Optional
 
 from . import MG_VERSION_COMPAT
-from .graph.gfa_io import read_gfa
+from .ggen.driver import ggen
+from .graph.bubbles import sort_ref_arc
+from .graph.gfa_io import read_gfa, write_gfa
 from .mapping.mapper import map_files
-from .options import (MG_M_ALL_CHAINS, MG_M_CIGAR, MG_M_FRAG_MERGE,
-                      MG_M_FRAG_MODE, MG_M_HEAP_SORT, MG_M_NO_COMP_PATH,
-                      MG_M_NO_DIAG, MG_M_PRINT_2ND, MG_M_RMQ,
-                      MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN,
+from .options import (MG_G_CAL_COV, MG_G_CALL, MG_G_GGSIMPLE, MG_G_NO_INV,
+                      MG_G_NO_QOVLP, MG_M_ALL_CHAINS, MG_M_CAL_COV,
+                      MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_FRAG_MODE,
+                      MG_M_HEAP_SORT, MG_M_NO_COMP_PATH, MG_M_NO_DIAG,
+                      MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
+                      MG_M_SKIP_GCHECK, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN,
                       GGOptions, IndexOptions, MapOptions, opt_check,
                       opt_set)
 from .utils.syslog import final_log, mlog
@@ -64,18 +75,10 @@ _LONG = [
 ]
 # options of stages the port does not have yet
 _REFUSED = {
-    "--call": "bubble calling",
-    "--cov": "coverage", "--write-mz": "minimizer dumps",
+    "--write-mz": "minimizer dumps",
     "--seed-device": "the device long-query sketch",
-    "--gwfa-device": "the device GWFA",
     "--tpu": "the TPU (use --device)",
     "--no-kalloc": "debug output",
-    "--ins-qovlp": "graph generation", "--inv": "graph generation",
-    "--gg-min-end-cnt": "graph generation",
-    "--gg-min-end-frac": "graph generation",
-    "--gg-match-pen": "graph generation", "-l": "graph generation",
-    "-d": "graph generation", "-q": "graph generation",
-    "-L": "graph generation",
 }
 # options whose argument is optional (--rmq, --rmq=no): getopt has no
 # such kind, so the attached form is renamed before it parses
@@ -101,13 +104,13 @@ def _parse_num2(s: str):
     return _parse_num(s), None
 
 
-def _yes_no(flag: int, bit: int, arg: str) -> int:
+def _yes_no(flag: int, bit: int, arg: str, yes_to_set: bool = True) -> int:
     yes = arg in ("yes", "y")
     no = arg in ("no", "n")
     if not yes and not no:
         sys.stderr.write("[WARNING] option only accepts 'yes' or 'no'.\n")
         return flag
-    return flag | bit if yes else flag & ~bit
+    return flag | bit if yes == yes_to_set else flag & ~bit
 
 
 def _split_optional(argv: List[str]) -> List[str]:
@@ -145,6 +148,7 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = sys.stdout
     n_threads = 4
     device = "cuda"
+    gwfa_device = False
     for k, v in opts:
         if k in _REFUSED or k.startswith("--dbg-"):
             return _refuse(k, _REFUSED.get(k, "debug output"))
@@ -174,6 +178,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             mo.mask_level = float(v)
         elif k == "-j":
             mo.div = float(v)
+        elif k == "-l":
+            go.min_map_len = _parse_num(v)
+        elif k == "-d":
+            go.min_depth_len = _parse_num(v)
+        elif k == "-q":
+            go.min_mapq = int(v)
+        elif k == "-L":
+            go.min_var_len = int(v)
         elif k == "-S":
             mo.flag |= MG_M_WRITE_LCHAIN
         elif k == "-c":
@@ -204,15 +216,36 @@ def main(argv: Optional[List[str]] = None) -> int:
             mo.flag |= MG_M_VERTEX_COOR
         elif k == "--secondary":
             mo.flag = _yes_no(mo.flag, MG_M_PRINT_2ND, v)
+        elif k == "--ins-qovlp":
+            go.flag = _yes_no(go.flag, MG_G_NO_QOVLP, v)
         elif k == "--heap-sort":
             mo.flag = _yes_no(mo.flag, MG_M_HEAP_SORT, v)
         elif k == "--show-unmap":
             mo.flag = _yes_no(mo.flag, MG_M_SHOW_UNMAP, v)
         elif k in ("--ggen", "--ggen-arg"):
-            if v != "none":
-                return _refuse(f"--ggen={v}" if v else k,
-                               "graph generation")
-            go.algo = 0
+            if v in ("", "simple"):
+                go.algo = MG_G_GGSIMPLE
+            elif v == "none":
+                go.algo = 0
+            else:
+                sys.stderr.write(f"ERROR: unknown ggen algorithm \"{v}\"\n")
+                return 1
+        elif k == "--gg-min-end-cnt":
+            go.ggs_min_end_cnt = int(v)
+        elif k == "--gg-min-end-frac":
+            go.ggs_min_end_frac = float(v)
+        elif k == "--gg-match-pen":
+            go.match_pen = int(v)
+        elif k == "--inv":
+            go.flag = _yes_no(go.flag, MG_G_NO_INV, v, yes_to_set=False)
+        elif k == "--call":
+            go.flag |= MG_G_CALL
+            mo.flag |= MG_M_SKIP_GCHECK
+        elif k == "--cov":
+            mo.flag |= MG_M_CAL_COV | MG_M_SKIP_GCHECK
+            go.flag |= MG_G_CAL_COV
+        elif k == "--gwfa-device":
+            gwfa_device = True
         elif k == "--rmq":
             mo.flag |= MG_M_RMQ
         elif k == "--rmq-arg":
@@ -248,8 +281,6 @@ def main(argv: Optional[List[str]] = None) -> int:
                 sys.stderr.write(f"[ERROR] unknown device '{v}'\n")
                 return 1
             device = None if v == "none" else v
-    if go.algo != 0:
-        return _refuse("-x ggs", "graph generation; add --ggen=none to map")
     if opt_check(io_, mo, go) < 0:
         return 1
     if not args:
@@ -257,8 +288,20 @@ def main(argv: Optional[List[str]] = None) -> int:
         return 1
     g = read_gfa(args[0])
     mlog("main", f'loaded the graph from "{args[0]}"')
-    ret = map_files(g, args[1:], io_, mo, out=out, n_threads=n_threads,
-                    device=device)
+    if go.algo == 0 and not (go.flag & MG_G_CALL):
+        # the GWFA pool follows --device: the plain version on the CPU,
+        # else the card
+        pool = ("cpu" if device == "cpu" else "cuda") if gwfa_device \
+            else None
+        ret = map_files(g, args[1:], io_, mo, out=out, n_threads=n_threads,
+                        device=device, gwfa_device=pool)
+    else:
+        if go.flag & MG_G_CALL:
+            sort_ref_arc(g)
+        ret = ggen(g, args[1:], io_, mo, go, out=out)
+    if (go.algo != 0 or (mo.flag & MG_M_CAL_COV)) \
+            and not (go.flag & MG_G_CALL):
+        write_gfa(g, out)
     if out is not sys.stdout:
         out.close()
     final_log(MG_VERSION_COMPAT, ["minigraph_tpu_torch"] + argv)

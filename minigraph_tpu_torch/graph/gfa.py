@@ -115,6 +115,10 @@ class Graph:
     def n_vtx(self) -> int:
         return len(self.seg) * 2
 
+    @property
+    def n_arc(self) -> int:
+        return len(self.arc)
+
     def arc_range(self, v: int) -> Tuple[int, int]:
         """(start, count) of arcs leaving vertex v in the sorted arc array."""
         row = self.idx[v]
@@ -302,3 +306,50 @@ class Graph:
         self.arc_w = np.fromiter((a.w for a in self.arc), np.int64, n)
         self.arc_lv = np.fromiter((a.v_lv & 0xFFFFFFFF for a in self.arc), np.int64, n)
         self.arc_rank = np.fromiter((a.rank for a in self.arc), np.int64, n)
+
+    def fix_multi(self) -> int:
+        """Remove duplicated links, preferring min rank (gfa-base.c:363)."""
+        n_rm = 0
+        for v in range(self.n_vtx):
+            st, cnt = self.arc_range(v)
+            buf = []
+            for i in range(st, st + cnt):
+                if not self.arc[i].deleted:
+                    buf.append((self.arc[i].w << 32) | (i - st))
+            if not buf:
+                continue
+            keys = np.asarray(buf, dtype=np.uint64)
+            perm = radix_argsort(keys)
+            buf = [buf[p] for p in perm]
+            nb = len(buf)
+            s = 0
+            for i in range(1, nb + 1):
+                if i == nb or (buf[i] >> 32) != (buf[s] >> 32):
+                    if i - s > 1:
+                        k = st + (buf[s] & 0xFFFFFFFF)
+                        min_rank = self.arc[k].rank
+                        for j in range(s + 1, i):
+                            t = st + (buf[j] & 0xFFFFFFFF)
+                            if self.arc[t].rank >= 0 and self.arc[t].rank < min_rank:
+                                min_rank = self.arc[t].rank
+                                k = t
+                        if self.arc[k].w == (v ^ 1):
+                            sys.stderr.write(
+                                "[W] can't fix multiple edges due to '>v -- <v' "
+                                f"involving segment {self.seg[v >> 1].name}\n")
+                        else:
+                            wst, wcnt = self.arc_range(self.arc[k].w ^ 1)
+                            link_id = self.arc[k].link_id
+                            n_rm += i - s - 1
+                            for j in range(s + 1, i):
+                                self.arc[st + (buf[j] & 0xFFFFFFFF)].deleted = True
+                            for j in range(wst, wst + wcnt):
+                                aw = self.arc[j]
+                                if aw.w == (v ^ 1) and aw.link_id != link_id:
+                                    aw.deleted = True
+                    s = i
+        if n_rm > 0:
+            sys.stderr.write(f"[W::fix_multi] removed {n_rm} multiple link(s)\n")
+            self._arc_rm()
+            self.arc_index()
+        return n_rm

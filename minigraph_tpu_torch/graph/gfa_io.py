@@ -273,3 +273,65 @@ def read_gfa(fn: str) -> Graph:
     g.finalize()
     return g
 
+
+def format_aux(aux: List[AuxTag]) -> str:
+    """Format tags back to text (gfa_aux_format, gfa-io.c:73-107)."""
+    parts = []
+    for t in aux:
+        if t.type == "A":
+            parts.append(f"\t{t.tag}:A:{t.value}")
+        elif t.type == "i":
+            parts.append(f"\t{t.tag}:i:{t.value}")
+        elif t.type == "f":
+            parts.append(f"\t{t.tag}:f:{t.value:g}")
+        elif t.type == "Z":
+            parts.append(f"\t{t.tag}:Z:{t.value}")
+        elif t.type == "B":
+            sub, items = t.value
+            body = ",".join(f"{v:g}" if sub == "f" else str(v) for v in items)
+            parts.append(f"\t{t.tag}:B:{sub}" + ("," + body if items else ""))
+    return "".join(parts)
+
+
+def write_gfa(g: Graph, fp: IO[str], ov_ext: bool = False, no_seq: bool = False) -> None:
+    """Byte-parity GFA writer (gfa_print, gfa-io.c:339-395)."""
+    out = []
+    for s in g.seg:
+        if s.deleted:
+            continue
+        parts = [f"S\t{s.name}\t"]
+        parts.append(s.seq if (s.seq is not None and not no_seq) else "*")
+        parts.append(f"\tLN:i:{s.len}")
+        if s.snid >= 0 and s.soff >= 0:
+            parts.append(f"\tSN:Z:{g.sseq[s.snid].name}\tSO:i:{s.soff}")
+        if s.rank >= 0:
+            parts.append(f"\tSR:i:{s.rank}")
+        if s.aux:
+            parts.append(format_aux(s.aux))
+        parts.append("\n")
+        out.append("".join(parts))
+    for a in g.arc:
+        if a.deleted or a.comp:
+            continue
+        v = a.v_lv >> 32
+        parts = [f"L\t{g.seg[v >> 1].name}\t{'+-'[v & 1]}\t"
+                 f"{g.seg[a.w >> 1].name}\t{'+-'[a.w & 1]}"]
+        if not ov_ext:
+            parts.append(f"\t{min(a.ov, a.ow)}M")
+        else:
+            if a.ov == a.ow:
+                parts.append(f"\t{a.ov}M")
+            else:
+                parts.append(f"\t{a.ov}:{a.ow}")
+        if a.rank >= 0:
+            parts.append(f"\tSR:i:{a.rank}")
+        lv = a.v_lv & 0xFFFFFFFF
+        lw = g.seg[a.w >> 1].len - a.ow
+        parts.append(f"\tL1:i:{lv}")
+        parts.append(f"\tL2:i:{lw}")
+        aux = g.link_aux.get(a.link_id)
+        if aux:
+            parts.append(format_aux(aux))
+        parts.append("\n")
+        out.append("".join(parts))
+    fp.write("".join(out))

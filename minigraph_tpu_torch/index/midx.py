@@ -70,27 +70,65 @@ def gfa_overlap(g: Graph) -> bool:
     return any(a.ov != 0 or a.ow != 0 for a in g.arc)
 
 
-def build_index(g: Graph, k: int, w: int, mo=None
+class IndexCache:
+    """Per-segment sketch and edseq cache for delta re-indexing.
+
+    Graph generation re-indexes the whole graph after every sample
+    (ggen.c:92), but augmentation only splits segments and adds new ones;
+    it never edits sequence (gfa-aug.c:93-175).  Keyed by the segment
+    sequence, unchanged segments reuse their sketch records (the y
+    records rebased to the new segment id) and their forward and
+    reverse-complement strings; only new or split segments are sketched.
+    The tables equal a build from scratch: a segment's sketch is a pure
+    function of (seq, w, k)."""
+
+    def __init__(self):
+        self.sk = {}   # (len, hash) -> (x, y_low32)
+        self.es = {}   # (len, hash) -> EdSeq
+        self.hits = self.misses = 0
+
+    @staticmethod
+    def key(seq: str):
+        return (len(seq), hash(seq))
+
+
+def build_index(g: Graph, k: int, w: int, mo=None,
+                cache: Optional[IndexCache] = None
                 ) -> Optional[MinimizerIndex]:
     """Index the graph (mg_index, index.c:186-230): uppercases segment
     sequences in place, sketches every segment, builds the flat table,
-    and updates dynamic occurrence options."""
+    and updates dynamic occurrence options.  With `cache`, unchanged
+    segments reuse their cached sketches (delta re-index)."""
     if gfa_overlap(g):
         raise ValueError("graphs with overlapping segments are not supported")
     for s in g.seg:
         if s.seq is not None:
             s.seq = s.seq.upper()
 
-    xs_all, ys_all = [], []
     # parallel bucket-build analog (kt_for, index.c:207): one
-    # pthread-pooled native call sketches every segment
+    # pthread-pooled native call sketches every segment (with a cache,
+    # every segment not in it)
     live = [(i, s.seq) for i, s in enumerate(g.seg)
             if s.seq is not None and s.len > 0]
-    many = sketch_many([s.encode("latin-1") for _, s in live],
-                       w, k, [i for i, _ in live]) if live else []
-    for x, y in many:
-        xs_all.append(x)
-        ys_all.append(y)
+    sk = [None] * len(live)
+    if cache is not None:
+        for n, (i, seq) in enumerate(live):
+            hit = cache.sk.get(IndexCache.key(seq))
+            if hit is not None:
+                sk[n] = (hit[0], hit[1] | (np.uint64(i) << np.uint64(32)))
+        cache.hits = sum(x is not None for x in sk)
+        cache.misses = len(live) - cache.hits
+    todo = [n for n in range(len(live)) if sk[n] is None]
+    many = sketch_many([live[n][1].encode("latin-1") for n in todo], w, k,
+                       [live[n][0] for n in todo]) if todo else []
+    for n, xy in zip(todo, many):
+        sk[n] = xy
+    if cache is not None:
+        # drop the entries of segments that disappeared
+        cache.sk = {IndexCache.key(seq): (x, y & np.uint64(0xFFFFFFFF))
+                    for (_, seq), (x, y) in zip(live, sk)}
+    xs_all = [x for x, _ in sk]
+    ys_all = [y for _, y in sk]
     gi = MinimizerIndex(g, k, w)
     if xs_all:
         x = np.concatenate(xs_all)
@@ -125,9 +163,18 @@ def build_index(g: Graph, k: int, w: int, mo=None
             cnt[-1] = len(minier) - start[-1]
             gi.key_cnt = cnt
 
-    gi.es = [EdSeq(fwd=(s.seq or "").encode("latin-1"),
-                   rc=revcomp(s.seq or "").encode("latin-1"), len=s.len)
-             for s in g.seg]
+    gi.es = []
+    new_es = {}
+    for s in g.seg:
+        ck = IndexCache.key(s.seq or "") if cache is not None else None
+        es = cache.es.get(ck) if cache is not None else None
+        if es is None:
+            es = EdSeq(fwd=(s.seq or "").encode("latin-1"),
+                       rc=revcomp(s.seq or "").encode("latin-1"), len=s.len)
+        new_es[ck] = es
+        gi.es.append(es)
+    if cache is not None:
+        cache.es = new_es
     from ..utils.syslog import mlog
     mlog("mg_index", "indexed the graph")
     if mo is not None:

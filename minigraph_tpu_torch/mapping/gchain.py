@@ -21,6 +21,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..align.gwfa import gwfa_bridge
+from ..align.gwfa_device import WCAP, GwfaBatchSink, GwfaPending
 from ..graph.shortk import PathDst, shortest_k
 from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
                        MG_M_SPLICE, MG_M_SR, MG_MAX_SHORT_K)
@@ -920,6 +921,7 @@ def gchain_sort_by_score(gcs: GChains) -> None:
 
 
 _mt_cfg = False
+_gwf_cfg = False
 _sel_cfg = False
 _gaf_cfg = False
 
@@ -994,17 +996,89 @@ def _select_native(lib, n_gc: int, sc, sel_args) -> int:
         sel_tab[2].ctypes.data, sel_tab[3].ctypes.data)
 
 
+def _gwf_harvest(lib, attempt):
+    """Hook mode 1 (native/mgt_gchain.c mgt_gwf_hook_set): run the tail
+    once, recording each bridge job as a row [qs, qe, v0, end0, v1,
+    end1, max_ed, 0].  Returns (n_gc, jobs).  The hook state is
+    thread-local in C, so harvest, solve and inject of one read stay on
+    the calling thread."""
+    global _gwf_cfg
+    if not _gwf_cfg:
+        lib.mgt_gwf_hook_set.restype = None
+        lib.mgt_gwf_hook_set.argtypes = [
+            ct.c_int64, ct.c_int64, ct.c_void_p, ct.c_int64,
+            ct.c_void_p, ct.c_void_p, ct.c_void_p, ct.c_int64]
+        lib.mgt_gwf_hook_jobs.restype = ct.c_int64
+        lib.mgt_gwf_hook_jobs.argtypes = []
+        _gwf_cfg = True
+    cap = 64
+    while True:
+        jobs = np.zeros((cap, 8), dtype=np.int64)
+        lib.mgt_gwf_hook_set(1, cap, jobs.ctypes.data, 0, None, None, None,
+                             0)
+        n_gc = attempt()
+        n_jobs = lib.mgt_gwf_hook_jobs()
+        lib.mgt_gwf_hook_set(0, 0, None, 0, None, None, None, 0)
+        if n_jobs <= cap:
+            return n_gc, jobs[:n_jobs]
+        cap = int(n_jobs) * 2
+
+
+def _gwf_inject(lib, attempt, res_s, res_walk, res_wn):
+    """Hook mode 2: re-run the tail with each bridge's device result;
+    a job marked -2 runs on the inline host engine."""
+    lib.mgt_gwf_hook_set(2, 0, None, len(res_s), res_s.ctypes.data,
+                         res_walk.ctypes.data, res_wn.ctypes.data, WCAP)
+    try:
+        return attempt()
+    finally:
+        lib.mgt_gwf_hook_set(0, 0, None, 0, None, None, None, 0)
+
+
+def _map_tail_gwfa_device(lib, attempt, pool, qseq):
+    """Harvest the read's bridge jobs, solve them on the device pool,
+    re-run the tail injecting the results.  A read with no bridge sites
+    finishes in the harvest pass: harvest alters behaviour only at
+    bridge sites."""
+    n_gc, jobs = _gwf_harvest(lib, attempt)
+    if n_gc < 0 or len(jobs) == 0:
+        return n_gc
+    return _gwf_inject(lib, attempt, *pool.run(jobs, qseq))
+
+
+def _map_tail_gwfa_sink(lib, attempt, sink, qseq):
+    """The cross-read variant: phase 1 adds the read's jobs to the batch
+    sink and defers the read (GwfaPending); phase 2 injects the read's
+    slice of the batch's one dispatch.  The harvest is deterministic, so
+    the slice matches site for site; a missing or mismatched slice only
+    skips injection, and the inline host engine bridges the same."""
+    n_gc, jobs = _gwf_harvest(lib, attempt)
+    if n_gc < 0 or len(jobs) == 0:
+        return n_gc
+    if sink.phase == 1:
+        return GwfaPending(sink.add(jobs, qseq))
+    inj = sink.pop_inject()
+    if inj is None or len(inj[0]) != len(jobs):
+        return attempt()
+    return _gwf_inject(lib, attempt, *inj)
+
+
 def map_tail_full(g, es, mode: int, chains_u, ax, ay, mini_pos, opt,
                   qlen: int, n_segs: int, max_dist_x: int, max_dist_y: int,
                   chn_pen_gap: float, chn_pen_skip: float, hash_: int,
-                  qseq: str, select, emit=None):
+                  qseq: str, select, emit=None, gwfa_pool=None):
     """The WHOLE per-read tail in one native call (native/mgt_tail.c
     mgt_map_tail): linear chain (mode 1 banded DP, mode 2 RMQ; mode 3
     takes the device front's compacted chains `chains_u`, ax/ay their
     anchors, and skips it) + long-join rescue + lchain tail +
-    graph-chain stage + selection (+ GAF text with `emit`).  Returns a GChains, or None for the
-    decomposed path when the engine bails (status -1 alloc, -2 output
-    caps, -3 bridge warning or reference assert)."""
+    graph-chain stage + selection (+ GAF text with `emit`).  Returns a
+    GChains, or None for the decomposed path when the engine bails
+    (status -1 alloc, -2 output caps, -3 bridge warning or reference
+    assert).  With `gwfa_pool` (align/gwfa_device.py) the bridges of the
+    graph-chain stage run on the device pool: a DeviceGwfaPool solves
+    the read's jobs at once; a GwfaBatchSink in its phase 1 collects them
+    and the read comes back as a GwfaPending, in phase 2 they are
+    injected from the batch's one dispatch."""
     global _mt_cfg
     lib = get_lib()
     if not _mt_cfg:
@@ -1037,30 +1111,42 @@ def map_tail_full(g, es, mode: int, chains_u, ax, ay, mini_pos, opt,
     llc_cap = n_a + 1024
     sc = _get_gen_scratch(llc_cap, n_a, max(n_a, 64))
     o_llc, o_ax, o_ay, g_tab = sc[0], sc[1], sc[2], sc[3]
-    # the engine compacts and flags the anchors in place: it works on
-    # copies, so the decomposed path after a bail sees the originals
-    ax = np.array(ax, dtype=np.uint64)
-    ay = np.array(ay, dtype=np.uint64)
     fp = None
     if mode == 3:
         chains_u = np.ascontiguousarray(chains_u, dtype=np.uint64)
         fp = chains_u.ctypes.data
-    n_gc = lib.mgt_map_tail(
-        mode, fp, None,
-        max_dist_x, max_dist_y, opt.bw, opt.max_lc_skip,
-        opt.max_lc_iter, opt.min_lc_cnt, opt.min_lc_score,
-        chn_pen_gap, chn_pen_skip,
-        0, n_segs, opt.max_gap_pre, opt.rmq_size_cap,
-        do_rescue, qlen, opt.bw_long, opt.rmq_rescue_size,
-        opt.max_gap, opt.rmq_rescue_ratio,
-        n_a, ax.ctypes.data, ay.ctypes.data,
-        mini_pos.ctypes.data, len(mini_pos), opt.lc_max_occ,
-        opt.lc_max_trim, opt.max_gap >> 1,
-        *args0, qb, len(qb),
-        opt.bw_long, opt.max_gc_skip, opt.ref_bonus, opt.mask_level,
-        MG_MAX_SHORT_K, hash_, opt.min_gc_cnt, opt.min_gc_score,
-        opt.gdp_max_ed,
-        o_llc.shape[1], len(o_ax), g_tab.shape[1], *sc[6])
+
+    def attempt():
+        # the engine compacts and flags the anchors in place: each call
+        # works on copies, so the decomposed path after a bail and the
+        # harvest -> inject re-run both see the originals
+        ax2 = np.array(ax, dtype=np.uint64)
+        ay2 = np.array(ay, dtype=np.uint64)
+        return lib.mgt_map_tail(
+            mode, fp, None,
+            max_dist_x, max_dist_y, opt.bw, opt.max_lc_skip,
+            opt.max_lc_iter, opt.min_lc_cnt, opt.min_lc_score,
+            chn_pen_gap, chn_pen_skip,
+            0, n_segs, opt.max_gap_pre, opt.rmq_size_cap,
+            do_rescue, qlen, opt.bw_long, opt.rmq_rescue_size,
+            opt.max_gap, opt.rmq_rescue_ratio,
+            n_a, ax2.ctypes.data, ay2.ctypes.data,
+            mini_pos.ctypes.data, len(mini_pos), opt.lc_max_occ,
+            opt.lc_max_trim, opt.max_gap >> 1,
+            *args0, qb, len(qb),
+            opt.bw_long, opt.max_gc_skip, opt.ref_bonus, opt.mask_level,
+            MG_MAX_SHORT_K, hash_, opt.min_gc_cnt, opt.min_gc_score,
+            opt.gdp_max_ed,
+            o_llc.shape[1], len(o_ax), g_tab.shape[1], *sc[6])
+
+    if gwfa_pool is None:
+        n_gc = attempt()
+    elif isinstance(gwfa_pool, GwfaBatchSink):
+        n_gc = _map_tail_gwfa_sink(lib, attempt, gwfa_pool, qseq)
+        if isinstance(n_gc, GwfaPending):
+            return n_gc
+    else:
+        n_gc = _map_tail_gwfa_device(lib, attempt, gwfa_pool, qseq)
     if n_gc < 0:
         return None
     n2 = 0 if n_gc == 0 else _select_native(lib, n_gc, sc, select)

@@ -34,6 +34,12 @@ the per-read path `_map_frag_finish` aligns the chains (align/cigar.py),
 and in the Python reader loop with a front and an output shape the
 batch cannot write (--vc, -S) the chains the native walk cannot finish
 leave their gaps to the front's gap pool (align/cigar_device.py).
+
+With a GWFA pool (--gwfa-device, align/gwfa_device.py) every read takes
+the Python reader loop and the per-read tail, whose graph-chain stage
+bridges on the pool: with a front one pool call a read, without one a
+GwfaBatchSink and one call a batch.  --cov adds each read's chains to
+the segment and link coverage (ggen/cov.py) instead of writing GAF.
 """
 from __future__ import annotations
 
@@ -49,6 +55,8 @@ import torch
 from ..align.cigar import gchain_cigar, gchain_gen_ds
 from ..align.cigar_device import (CigarSink, DeviceWfaPool, finalize_read,
                                   harvest_read)
+from ..align.gwfa_device import DeviceGwfaPool, GwfaBatchSink, GwfaPending
+from ..ggen.cov import aux_update_cv, cov_map
 from ..graph.gfa import Graph, revcomp
 from ..index.midx import MinimizerIndex, build_index
 from ..options import (MG_M_CAL_COV, MG_M_CIGAR, MG_M_FRAG_MERGE,
@@ -71,18 +79,18 @@ from .select import (gchain_drop_flt, gchain_flt_sub, gchain_set_mapq,
                      gchain_set_parent)
 
 U32 = 0xFFFFFFFF
-# options whose stages the port does not have yet: coverage (--cov),
-# minimizer dumps (--write-mz), spliced chains
-UNSUPPORTED_FLAGS = MG_M_CAL_COV | MG_M_WRITE_MZ | MG_M_SPLICE
+# options whose stages the port does not have yet: minimizer dumps
+# (--write-mz), spliced chains
+UNSUPPORTED_FLAGS = MG_M_WRITE_MZ | MG_M_SPLICE
 # output shapes the native GAF formatter of the per-read tail does not
-# write: such reads are serialized by seqio/gaf.py
-_EMIT_BAIL_FLAGS = (MG_M_CIGAR | MG_M_FRAG_MODE | MG_M_FRAG_MERGE
-                    | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR)
+# write: such reads are serialized by seqio/gaf.py (--cov: no GAF)
+_EMIT_BAIL_FLAGS = (MG_M_CIGAR | MG_M_CAL_COV | MG_M_FRAG_MODE
+                    | MG_M_FRAG_MERGE | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR)
 # -c does not bail the batch: its workers run the base-level stage
 # (CIGAR and ds) natively
 _EMIT_BAIL_NOCIG = _EMIT_BAIL_FLAGS & ~MG_M_CIGAR
 # the native batch writes merged pairs too; these shapes still bail
-_EMIT_BAIL_BATCH = MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR
+_EMIT_BAIL_BATCH = MG_M_CAL_COV | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR
 
 
 def _batch_mode_ok(flag: int) -> bool:
@@ -118,8 +126,10 @@ def _check_options(opt: MapOptions) -> None:
 
 def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
              opt: MapOptions, qname: Optional[str],
-             fast_emit: bool = False) -> Optional[gchain.GChains]:
-    """Map one fragment (n_segs query segments) to the graph."""
+             fast_emit: bool = False,
+             gwfa_pool=None) -> Optional[gchain.GChains]:
+    """Map one fragment (n_segs query segments) to the graph; with a
+    `gwfa_pool`, as map_frag_tail."""
     n_segs = len(qlens)
     qlen_sum = sum(qlens)
     if qlen_sum == 0 or n_segs <= 0 or n_segs > MG_MAX_SEG:
@@ -142,15 +152,16 @@ def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
             ax, ay, rep_len, mini_pos = collect_seed_hits(
                 gi, opt, opt.occ_max1, mv_x, mv_y, qname)
     return map_frag_tail(gi, qlens, seqs, opt, qname, ax, ay, rep_len,
-                         mini_pos, n_mv, fast_emit=fast_emit)
+                         mini_pos, n_mv, fast_emit=fast_emit,
+                         gwfa_pool=gwfa_pool)
 
 
 def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                   opt: MapOptions, qname: Optional[str],
                   ax: np.ndarray, ay: np.ndarray, rep_len: int,
                   mini_pos: np.ndarray, n_mv: int, chains_u=None,
-                  cigar_sink=None,
-                  fast_emit: bool = False) -> gchain.GChains:
+                  cigar_sink=None, fast_emit: bool = False,
+                  gwfa_pool=None) -> gchain.GChains:
     """Per-read pipeline after seed collection (map-algo.c:377-495).
 
     ax/ay are the read's anchors, or with `chains_u` the device front's
@@ -158,7 +169,9 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
     chain stage.  The whole tail runs in one native call; each native
     stage that bails hands the read to the next, more decomposed one.
     With -c and a `cigar_sink` (align/cigar_device.py CigarSink) the gaps
-    the native walk cannot align are left to the sink's batch pool."""
+    the native walk cannot align are left to the sink's batch pool.  With
+    a `gwfa_pool` the whole tail's bridges run on it; a GwfaBatchSink in
+    its first phase defers the read: the call returns a GwfaPending."""
     n_segs = len(qlens)
     qlen_sum = sum(qlens)
     hash_ = kh_hash_str(qname) if qname else 0
@@ -197,7 +210,9 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
         gcs = gchain.map_tail_full(
             gi.g, gi.es, mode, chains_u, ax, ay, mini_pos, opt, qlen_sum,
             n_segs, mdx, mdy, chn_pen_gap, chn_pen_skip, hash_, seq_cat,
-            sel_args, emit)
+            sel_args, emit, gwfa_pool)
+        if isinstance(gcs, GwfaPending):
+            return gcs
         if gcs is not None:
             gcs.rep_len = rep_len
             return _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat,
@@ -305,6 +320,11 @@ def _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum, n_mv,
             gchain_cigar(gi.g, gi.es, seq_cat, gcs, qname)
             gchain_gen_ds(gi.g, gi.es, seq_cat, gcs)
     return gcs
+
+
+def map_one(gi: MinimizerIndex, seq: str, opt: MapOptions,
+            qname: Optional[str] = None) -> Optional[gchain.GChains]:
+    return map_frag(gi, [len(seq)], [seq], opt, qname)
 
 
 def _ema(prev, x, alpha=0.4):
@@ -798,7 +818,8 @@ def _update_split(split, h_wall, h_cpu, h_n):
 
 
 def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
-                   n_threads: int = 1, front=None, stats=None) -> None:
+                   n_threads: int = 1, front=None, stats=None,
+                   gwfa_pool=None, cov=None) -> None:
     """The read -> map -> write loop of one file, or of a group of
     files read in step (gmap.c:66-177).
 
@@ -812,17 +833,25 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
     without one, the whole batch in one native host call where the
     batch can write it.  What neither takes (pairs with a front, the
     output shapes the batch cannot write, -D) maps on the per-read
-    path, in threads when a front runs and several are asked for."""
+    path, in threads when a front runs and several are asked for.
+
+    With a `gwfa_pool` every read maps on the per-read path, whose tail
+    bridges on the pool (no native loop, no host share, no native batch):
+    per read with a front, through a GwfaBatchSink for the whole batch
+    without one.  With `cov` = (c_seg, c_link) the reads' chains add to
+    the coverage instead of writing GAF."""
     from concurrent.futures import ThreadPoolExecutor
 
     frag_mode = len(fns) > 1 or bool(opt.flag & MG_M_FRAG_MODE)
     split = None
-    if front is not None and not (opt.flag & _EMIT_BAIL_NOCIG):
+    if front is not None and gwfa_pool is None \
+            and not (opt.flag & _EMIT_BAIL_NOCIG):
         split = getattr(front, "_split_state", None)
         if split is None:
             split = {"share": 0.35, "t_host": None, "t_dev": None}
             front._split_state = split
-    if (len(fns) == 1 and (not frag_mode or front is None)
+    if (gwfa_pool is None and len(fns) == 1
+            and (not frag_mode or front is None)
             and _batch_mode_ok(opt.flag)
             and not (opt.flag & (MG_M_INDEPEND_SEG | MG_M_NO_DIAG))
             and (front is None or split is not None)):
@@ -840,13 +869,14 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
     fps = [BSeqFile(fn) for fn in fns]
     pe_ori = opt.pe_ori
-    split_ok = (front is not None
+    split_ok = (front is not None and gwfa_pool is None
                 and not (opt.flag & (_EMIT_BAIL_NOCIG | MG_M_HEAP_SORT
                                      | MG_M_INDEPEND_SEG | MG_M_NO_DIAG)))
     if not split_ok:
         split = {"share": 0.35, "t_host": None, "t_dev": None}
     host_pool = ThreadPoolExecutor(max_workers=1) if split_ok else None
-    host_batch_ok = (front is None and _batch_mode_ok(opt.flag)
+    host_batch_ok = (front is None and gwfa_pool is None
+                     and _batch_mode_ok(opt.flag)
                      and not (opt.flag & (MG_M_INDEPEND_SEG
                                           | MG_M_NO_DIAG)))
 
@@ -946,7 +976,8 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             # the per-read path only for what it cannot take
             batch_txt = None
             flips_done = False
-            if front_res and not (opt.flag & _EMIT_BAIL_NOCIG):
+            if front_res and gwfa_pool is None \
+                    and not (opt.flag & _EMIT_BAIL_NOCIG):
                 items = [(fi, batch[frags[fi][0]].name,
                           batch[frags[fi][0]].seq, fr)
                          for fi, fr in front_res.items()
@@ -1009,7 +1040,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             if front_res and batch_txt is None and (opt.flag & MG_M_CIGAR):
                 cigar_sink = CigarSink()
 
-            def compute_frag(fi, off, n_seg):
+            def compute_frag(fi, off, n_seg, gp=gwfa_pool):
                 if not flips_done and n_seg == 2:
                     flip(batch, off)
                 seqs = [batch[off + k].seq for k in range(n_seg)]
@@ -1021,29 +1052,36 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                         gi, qlens, seqs, opt, batch[off].name, fr.ax,
                         fr.ay, fr.rep_len, fr.mini_pos, fr.n_mv,
                         chains_u=fr.u, cigar_sink=cigar_sink,
-                        fast_emit=fast)]
+                        fast_emit=fast, gwfa_pool=gp)]
                 elif opt.flag & MG_M_INDEPEND_SEG:
                     gcs_list = [map_frag(gi, [qlens[k]], [seqs[k]], opt,
                                          batch[off + k].name,
-                                         fast_emit=fast)
+                                         fast_emit=fast, gwfa_pool=gp)
                                 for k in range(n_seg)]
                 else:
                     gcs_list = [map_frag(gi, qlens, seqs, opt,
-                                         batch[off].name, fast_emit=fast)]
+                                         batch[off].name, fast_emit=fast,
+                                         gwfa_pool=gp)]
                 return qlens, gcs_list
+
+            def emit_one(gcs, n_seg, qlens, name):
+                if cov is not None:
+                    cov_map(gi.g, gcs, opt.min_cov_mapq, opt.min_cov_blen,
+                            *cov, name)
+                else:
+                    out.write(write_gaf(gi.g, gcs, n_seg, qlens, name,
+                                        opt.flag))
 
             def emit_frag(off, n_seg, qlens, gcs_list):
                 if (opt.flag & MG_M_FRAG_MODE) \
                         and (opt.flag & MG_M_FRAG_MERGE):
-                    out.write(write_gaf(gi.g, gcs_list[0], n_seg, qlens,
-                                        batch[off].name, opt.flag))
+                    emit_one(gcs_list[0], n_seg, qlens, batch[off].name)
                     return
                 for k in range(n_seg):
                     t = batch[off + k]
                     gck = gcs_list[k] if len(gcs_list) > 1 else \
                         (gcs_list[0] if k == 0 else None)
-                    out.write(write_gaf(gi.g, gck, 1, [t.l_seq], t.name,
-                                        opt.flag))
+                    emit_one(gck, 1, [t.l_seq], t.name)
 
             todo = [fi for fi in range(len(frags))
                     if batch_txt is None or batch_txt.get(fi) is None]
@@ -1064,6 +1102,21 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                     done = {fi: ex.submit(compute_frag, fi, *frags[fi])
                             for fi in todo}
                     done = {fi: f.result() for fi, f in done.items()}
+            elif gwfa_pool is not None and front is None:
+                # cross-read pooling: harvest every read's bridge jobs
+                # (phase 1), one pool call for the batch, then map the
+                # deferred reads again with their results (phase 2)
+                sink = GwfaBatchSink(gwfa_pool)
+                done = {fi: compute_frag(fi, *frags[fi], gp=sink)
+                        for fi in todo}
+                flips_done = True       # the second pass must not re-flip
+                sink.solve()
+                for fi in todo:
+                    tickets = [gc.ticket for gc in done[fi][1]
+                               if isinstance(gc, GwfaPending)]
+                    if tickets:
+                        sink.queue_inject(tickets)
+                        done[fi] = compute_frag(fi, *frags[fi], gp=sink)
             else:
                 done = {fi: compute_frag(fi, *frags[fi]) for fi in todo}
             for fi, (off, n_seg) in enumerate(frags):
@@ -1080,7 +1133,8 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
 def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
               out=sys.stdout, n_threads: int = 1, front=None,
-              stats: Optional[dict] = None) -> None:
+              stats: Optional[dict] = None, gwfa_pool=None,
+              cov=None) -> None:
     """Map each query file against an index (the loop of mg_map_files);
     in frag mode with several files, the files in step as one group.
 
@@ -1099,7 +1153,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     and host shares (n_share_dev, n_share_host), the device probes
     (n_probes), and with a front the final share and collapsed (where
     the loop ran a split), the front's counters and per-stage device
-    times (ms)."""
+    times (ms).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
+    the graph-chain stage (every read then maps on the per-read path);
+    cov: (c_seg, c_link) float64 arrays the reads' coverage adds to
+    (--cov), instead of GAF."""
     _check_options(opt)
     if front is not None and stats is not None:
         for key in ("n_share_dev", "n_share_host"):
@@ -1108,7 +1165,8 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
         else [[fn] for fn in fns]
     t0 = time.perf_counter()
     for group in groups:
-        _map_file_frag(gi, group, opt, out, n_threads, front, stats)
+        _map_file_frag(gi, group, opt, out, n_threads, front, stats,
+                       gwfa_pool, cov)
     if stats is not None:
         stats["map_ms"] = (time.perf_counter() - t0) * 1e3
     if front is not None:
@@ -1127,7 +1185,8 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
 
 def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
               opt0: MapOptions, out=sys.stdout, n_threads: int = 1,
-              device="cuda", stats: Optional[dict] = None) -> int:
+              device="cuda", stats: Optional[dict] = None,
+              gwfa_device=None) -> int:
     """Index once, then map each query file (mg_map_files).
 
     device: "cuda" (default) runs the seed (and, where the chain is the
@@ -1135,8 +1194,14 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
     runs the same stages' plain versions on the CPU, None maps every
     read on the native host path.  The GAF bytes are the same in all
     three cases: reads the device cannot reproduce exactly are flagged
-    and take the host path.  `stats`, when given, receives the index
-    wall time (index_ms) and what map_reads reports."""
+    and take the host path.  gwfa_device: where the GWFA bridge pool
+    runs ("cuda"; "cpu" the plain version; None no pool: the native
+    tail bridges on the host); its jobs the kernel
+    flags bridge on the host, with the same bytes.  With --cov (the
+    MG_M_CAL_COV flag) the reads' coverage goes into g's dc:f tags
+    instead of GAF.  `stats`, when given, receives the index wall time
+    (index_ms) and what map_reads reports, and with a pool its counts
+    (gwfa_jobs, gwfa_device, gwfa_flagged, gwfa_oversize)."""
     dev = resolve_device(device)
     opt = copy.copy(opt0)
     _check_options(opt)
@@ -1146,7 +1211,22 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
     if dev is not None:
         from .device_front import DeviceFront
         front = DeviceFront(gi, opt, device=dev)
+    pool = None
+    if gwfa_device is not None:
+        pool = DeviceGwfaPool(gi, resolve_device(gwfa_device))
+    cov = None
+    if opt.flag & MG_M_CAL_COV:
+        cov = (np.zeros(g.n_seg, dtype=np.float64),
+               np.zeros(g.n_arc, dtype=np.float64))
     if stats is not None:
         stats["index_ms"] = (time.perf_counter() - t0) * 1e3
-    map_reads(gi, opt, fns, out, n_threads, front, stats)
+    map_reads(gi, opt, fns, out, n_threads, front, stats, pool, cov)
+    if pool is not None:
+        pool.log_stats()
+        if stats is not None:
+            stats.update(gwfa_jobs=pool.n_jobs, gwfa_device=pool.n_device,
+                         gwfa_flagged=pool.n_flagged,
+                         gwfa_oversize=pool.n_oversize)
+    if cov is not None:
+        aux_update_cv(g, "dc", *cov)
     return 0

@@ -28,9 +28,13 @@ MG_M_WRITE_MZ = 0x1000000
 MG_M_SKIP_GCHECK = 0x2000000
 MG_M_CIGAR = 0x4000000
 
-# graph-generation algorithms
+# graph-generation algorithms and flags
 MG_G_NONE = 0
 MG_G_GGSIMPLE = 1
+MG_G_NO_QOVLP = 0x1
+MG_G_CAL_COV = 0x2
+MG_G_NO_INV = 0x4
+MG_G_CALL = 0x8
 
 # seed flags (mgpriv.h:18-27)
 MG_SEED_IGNORE = 1 << 41
@@ -86,8 +90,8 @@ class MapOptions:
     best_n: int = 5
     pri_ratio: float = 0.8
     ref_bonus: int = 0
-    # read by no mapping stage: the allocator cap (--cap-calloc) and the
-    # coverage thresholds of --cov, which the port refuses
+    # the allocator cap (--cap-calloc, read by no stage) and the coverage
+    # thresholds of --cov
     cap_kalloc: int = 1_000_000_000
     min_cov_mapq: int = 20
     min_cov_blen: int = 1000
@@ -95,9 +99,19 @@ class MapOptions:
 
 @dataclass
 class GGOptions:
-    """Graph generation: only the algorithm, so that a preset that turns
-    it on (-x ggs) can be refused by name."""
+    """Graph generation (-x ggs, --ggen), --call and --cov."""
+    flag: int = MG_G_NO_QOVLP
     algo: int = MG_G_NONE
+    min_mapq: int = 5
+    min_map_len: int = 100000
+    min_depth_len: int = 20000
+    min_var_len: int = 50
+    match_pen: int = 10
+    ggs_shrink_pen: int = 9
+    ggs_min_end_cnt: int = 10
+    ggs_min_end_frac: float = 0.1
+    ggs_max_iden: float = 0.80
+    ggs_min_inv_iden: float = 0.95
 
 
 def opt_set(preset: str | None, io: IndexOptions, mo: MapOptions,

@@ -146,6 +146,20 @@ class BSeqFile:
         return out
 
 
+def read_all(fn: str) -> List[BSeq]:
+    """Every record of a file (graph generation maps whole assemblies)."""
+    f = BSeqFile(fn)
+    try:
+        out = []
+        while True:
+            batch = f.read_batch(1 << 62)
+            if not batch:
+                return out
+            out.extend(batch)
+    finally:
+        f.close()
+
+
 class NativeSeqReader:
     """Arena batch reader over native/mgt_seqio.c: records land in C
     buffers (uppercased, U->T) that the native batch tail reads

@@ -247,3 +247,59 @@ def write_bubble_rgfa(ref: str, seed: int, path: str,
     with open(path, "w") as fh:
         fh.write("\n".join(lines) + "\n")
     return "".join(hap)
+
+
+def bridge_jobs(g, es, rng: np.random.Generator, n: int, mrate: int = 8,
+                qcap: int = 1024, max_ed: int = 120):
+    """GWFA bridge-shaped jobs on graph g: a source vertex's suffix, a
+    random walk of 0-2 arcs, a target vertex's prefix, point-mutated at
+    one base in `mrate` (tests/test_device_gwfa.py's recipe).  Returns
+    (query bytes, v0, off0, v1, off1, max_ed) for those of 1..qcap
+    bases."""
+    def vseq(v):
+        return es[v >> 1].fwd if (v & 1) == 0 else es[v >> 1].rc
+
+    jobs = []
+    for _ in range(n):
+        a = g.arc[int(rng.integers(0, g.n_arc))]
+        v0, v1 = a.v_lv >> 32, a.w
+        l0 = g.seg[v0 >> 1].len
+        end0 = int(rng.integers(max(l0 - 150, 0), l0))
+        mid = b""
+        vcur = v1
+        for _hop in range(int(rng.integers(0, 3))):
+            st, cnt = g.arc_range(vcur)
+            if cnt == 0:
+                break
+            ai2 = st + int(rng.integers(0, cnt))
+            if vcur != v1:
+                mid += vseq(vcur)
+            vcur = int(g.arc_w[ai2])
+        v1 = vcur
+        end1 = int(rng.integers(0, min(150, g.seg[v1 >> 1].len)))
+        q = bytearray(vseq(v0)[end0:] + mid + vseq(v1)[: end1 + 1])
+        for p in rng.integers(0, max(len(q), 1),
+                              size=max(1, len(q) // mrate)):
+            q[p] = ord("ACGT"[int(rng.integers(0, 4))])
+        if q and len(q) <= qcap:
+            jobs.append((bytes(q), int(v0), end0, int(v1), end1, max_ed))
+    return jobs
+
+
+def write_star_gfa(path: str, seed: int, n_out: int = 8,
+                   seg_len: int = 600) -> None:
+    """A small GFA whose segment hub has n_out successors (a vertex of
+    degree n_out), each leading on to one tail segment."""
+    rng = np.random.default_rng(seed)
+
+    def seq():
+        return _rand_seq(rng, seg_len).tobytes().decode("latin-1")
+
+    lines = [f"S\thub\t{seq()}\tLN:i:{seg_len}",
+             f"S\ttail\t{seq()}\tLN:i:{seg_len}"]
+    for i in range(n_out):
+        lines.append(f"S\tx{i}\t{seq()}\tLN:i:{seg_len}")
+        lines.append(f"L\thub\t+\tx{i}\t+\t0M")
+        lines.append(f"L\tx{i}\t+\ttail\t+\t0M")
+    with open(path, "w") as fh:
+        fh.write("\n".join(lines) + "\n")

@@ -819,3 +819,115 @@ def test_gap_pool_on_card_matches_cpu(card):
     assert (pool.n_device, pool.n_host) == (cpu.n_device, cpu.n_host)
     assert pool.n_device > 0
     assert kernels.launches["wfa_wave"] == kernels.launches["wfa_walk"] > 0
+
+
+# ---- the GWFA bridge kernel (csrc/gwfa.cu)
+
+@pytest.fixture(scope="module")
+def gwfa_graphs(tmp_path_factory):
+    """A 300 kb bubble graph of 5 kb segments and a star graph with a
+    vertex of degree 8, each with its edseqs."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.tools.synth import (make_reference,
+                                                 write_bubble_rgfa,
+                                                 write_star_gfa)
+    d = tmp_path_factory.mktemp("gwfa")
+    write_bubble_rgfa(make_reference(300_000, seed=5), 6, str(d / "g.gfa"),
+                      seg_len=5000, bubble_every=2)
+    write_star_gfa(str(d / "star.gfa"), 7)
+    out = {}
+    for name in ("g", "star"):
+        g = read_gfa(str(d / f"{name}.gfa"))
+        out[name] = (g, build_index(g, 15, 10).es)
+    return out
+
+
+def gwfa_jobs(graph, seed, qcap, n=16):
+    """Bridge jobs of the bucket (qcap / 4, qcap] (or up to 256) at
+    mutation rates 3, 8 and 25, n of them."""
+    from minigraph_tpu_torch.tools.synth import bridge_jobs
+    g, es = graph
+    rng = np.random.default_rng(seed)
+    lo = 0 if qcap <= 256 else 256
+    jobs = []
+    while len(jobs) < n:
+        for mrate in (3, 8, 25):
+            jobs += [j for j in bridge_jobs(g, es, rng, 8, mrate, qcap)
+                     if len(j[0]) > lo]
+    return jobs[:n]
+
+
+def gwfa_check(graph, jobs, qcap, J=None, degcap=6, **caps):
+    from minigraph_tpu_torch.ops import gwfa as gw
+    g, es = graph
+    gd, _ = gw.build_device_graph(g, es, degcap)
+    args = gw.pack_jobs(jobs, qcap, J)
+    want = gw.gwfa_batch_ref(gd, *args, degcap=degcap, **caps)
+    n0 = kernels.launches["gwfa"]
+    got = gw.gwfa_batch(gd.to("cuda"), *(x.cuda() for x in args),
+                        degcap=degcap, **caps)
+    torch.cuda.synchronize()
+    assert kernels.launches["gwfa"] == n0 + 1
+    for key in ("s", "flags", "walk", "n_walk"):
+        assert torch.equal(got[key].cpu(), want[key]), key
+    return want
+
+
+@pytest.mark.parametrize("qcap", [256, 1024])
+def test_gwfa_kernel_matches_ref(card, gwfa_graphs, qcap):
+    want = gwfa_check(gwfa_graphs["g"], gwfa_jobs(gwfa_graphs["g"], qcap,
+                                                  qcap), qcap)
+    assert int((want["flags"] == 0).sum()) >= 8
+    assert int((want["s"] >= 0).sum()) >= 4
+
+
+@pytest.mark.parametrize("qcap,seed", [(256, 105), (1024, 102)])
+def test_gwfa_kernel_ties(card, gwfa_graphs, qcap, seed):
+    """Batches with a tainted winning lineage (F_TIE)."""
+    want = gwfa_check(gwfa_graphs["g"], gwfa_jobs(gwfa_graphs["g"], seed,
+                                                  qcap), qcap)
+    assert int((want["flags"] & 1).sum()) > 0
+
+
+@pytest.mark.parametrize("caps", [
+    dict(degcap=1, dcap=64, evcap=64),
+    dict(hopcap=1),
+    dict(dcap=16, evcap=16, ccap=32),
+    dict(tcap=8),
+    dict(fcap=8),
+    dict(max_steps=4),
+], ids=["degcap1", "hopcap1", "ccap32", "tcap8", "fcap8", "steps4"])
+def test_gwfa_kernel_flag_caps(card, gwfa_graphs, caps):
+    """Reduced caps that make each flag bit fire: flags and the other
+    outputs equal the plain version's."""
+    want = gwfa_check(gwfa_graphs["g"], gwfa_jobs(gwfa_graphs["g"], 11,
+                                                  256), 256, **caps)
+    assert int((want["flags"] != 0).sum()) > 0
+
+
+def test_gwfa_kernel_padded_batch(card, gwfa_graphs):
+    """Five jobs padded to 32 with one-base pad jobs, and an empty batch,
+    which launches nothing and so counts no launch."""
+    from minigraph_tpu_torch.ops import gwfa as gw
+    gwfa_check(gwfa_graphs["g"], gwfa_jobs(gwfa_graphs["g"], 12, 256, 5),
+               256, J=32)
+    g, es = gwfa_graphs["g"]
+    gd, _ = gw.build_device_graph(g, es)
+    n0 = kernels.launches["gwfa"]
+    res = gw.gwfa_batch(gd.to("cuda"),
+                        *gw.pack_jobs([], 256, 0, device="cuda"))
+    assert res["s"].shape == (0,)
+    assert kernels.launches["gwfa"] == n0
+
+
+def test_gwfa_kernel_high_degree(card, gwfa_graphs):
+    """A vertex of degree 8 at degcap 6 (F_DEG) and at degcap 8."""
+    from minigraph_tpu_torch.tools.synth import bridge_jobs
+    g, es = gwfa_graphs["star"]
+    rng = np.random.default_rng(13)
+    jobs = bridge_jobs(g, es, rng, 24, 8, 1024)[:16]
+    want = gwfa_check(gwfa_graphs["star"], jobs, 1024)
+    assert int(((want["flags"] & 8) != 0).sum()) > 0
+    gwfa_check(gwfa_graphs["star"], jobs, 1024, degcap=8, dcap=256,
+               evcap=128)

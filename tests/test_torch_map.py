@@ -132,6 +132,7 @@ def test_cli_matches_host_path(files):
 
 
 def test_unsupported_options_raise(files):
-    from minigraph_tpu_torch.options import MG_M_CAL_COV
+    # --cov (MG_M_CAL_COV) is ported; --write-mz is still refused
+    from minigraph_tpu_torch.options import MG_M_WRITE_MZ
     with pytest.raises(NotImplementedError):
-        port_gaf(files, None, MG_M_CAL_COV)
+        port_gaf(files, None, MG_M_WRITE_MZ)
