@@ -108,16 +108,35 @@ Phases, in order; any failure exits non-zero:
    front pinned at share 0, one pool call a read, and (2) no front, one
    pool call a batch (GwfaBatchSink), each held to the host-only GAF
    bytes and printing the jobs, n_device (> 0), flagged, oversize, the
-   kernel's launches and reads/s;
+   kernel's launches, the pool's kernel_ms (the launches alone) inside
+   its batch_ms (the wrapper calls) and reads/s;
 10. graph generation on the host: -cxggs -l10k on the phase 4 graph
    with two make_haplotype samples cut into contigs (the segments and
    arcs it adds, > 0), -xasm --call -l10k of a third sample on the new
    graph (its BED lines), then phase 4's reads on the new graph with the
-   front pinned, held to the host-only GAF bytes on that graph.
+   front pinned, held to the host-only GAF bytes on that graph;
+11. --seed-device, the chunk-halo sweep of index/midx_device.py on K1:
+   (a) K1 bitwise against its plain version at the sweep's widths for
+   asm's (k, w) = (19, 10), (128, 4137) and (16, 32809), on the sweep's
+   first batch of each bucket for phase 7 (a)'s contigs, timed, and the
+   batches one whole haplotype takes; (b) build_index_device on the
+   phase 4 graph at lr's and asm's settings, its tables equal to
+   build_index's, one K1 launch a chunk batch, both timed, and the sweep
+   against the host sketch on every segment plus a tandem sequence whose
+   planes overflow (it alone goes to the host sketch); (c) phase 10's
+   -cxggs -l10k with --seed-device (graph generation maps each contig
+   with map_one, the per-read path): the rGFA bytes of phase 10, one
+   sweep a contig of 16384 bp or more, its K1 launches counted; (d)
+   -xasm --write-mz --seed-device on phase 7's whole haplotype as one
+   ~5 Mb query (its output shape takes the Python reader loop, so the
+   device route): the GAF bytes of --device none without --seed-device,
+   K1 launched once a chunk batch.
 
 After the build it prints ptxas' registers, stack frame and spills of
 the sketch, chunked-chain, ring-chain, banded-score, backtrack,
-exact-WFA and GWFA kernels.  Prints the kernels' JSON line,
+exact-WFA and GWFA kernels.  Prints the kernels' JSON line (K1 twice:
+"sketch" with the main path's launches, "sketch_seed_device" at the
+sweep's width with run 11 (d)'s),
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -248,8 +267,14 @@ def synth_codes(B, L, rng):
 
 
 def check_sketch(rng, B, L, w, k, reps):
+    return check_sketch_codes(*synth_codes(B, L, rng), w, k, reps)
+
+
+def check_sketch_codes(codes, lens, w, k, reps):
+    """K1 on (B, L) nt4 codes against its plain version on the card,
+    bitwise; events, CUDA-graph and plain times and the bound."""
     from minigraph_tpu_torch.ops import sketch as sk
-    codes, lens = synth_codes(B, L, rng)
+    B, L = codes.shape
     c = torch.from_numpy(codes).cuda()
     n = torch.from_numpy(lens).cuda()
     got = sk.sketch_planes(c, n, w, k)
@@ -1383,9 +1408,17 @@ def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
         log(f"phase 9 {name}: GAF bytes equal to the host-only run; "
             f"{pool.n_jobs} jobs, n_device {pool.n_device}, "
             f"{pool.n_flagged} flagged to the host, {pool.n_oversize} "
-            f"oversize; {pool.n_batches} pool batches, their kernel time "
-            f"{pool.kernel_ms:.4f} ms (CUDA events on the pool's stream); "
-            f"launches {lc}")
+            f"oversize; {pool.n_batches} pool batches: kernel_ms "
+            f"{pool.kernel_ms:.4f} (the launches alone), batch_ms "
+            f"{pool.batch_ms:.4f} (the wrapper calls around them; CUDA "
+            f"events on the pool's stream), {pool.kernel_ms / max(1, pool.n_batches):.4f} "
+            f"and {pool.batch_ms / max(1, pool.n_batches):.4f} ms a batch, "
+            f"kernel_ms {100 * pool.kernel_ms / st['map_ms']:.2f}% of "
+            f"map_ms; launches {lc}")
+        if not 0 < pool.kernel_ms <= pool.batch_ms:
+            raise AssertionError(f"phase 9 {name}: kernel_ms "
+                                 f"{pool.kernel_ms} outside batch_ms "
+                                 f"{pool.batch_ms}")
         log(run_line(f"run 9 {name}", st, n_reads))
         if launches is None:
             launches = lc
@@ -1445,6 +1478,186 @@ def ggen_phase(ref, gfa, work, reads_fa, n_reads):
         f"lines)")
     log(run_line("run 10 device path, new graph", st_d, n_reads))
     log(run_line("run 10 host only, new graph", st_h, n_reads))
+    return samples, out_gfa, t_ggs
+
+
+def sweep_launches(seqs, w, k):
+    """K1 launches of one sketch_segments_device call on `seqs`: one a
+    chunk batch of each bucket (index/midx_device.py)."""
+    from minigraph_tpu_torch.index.midx_device import DEV_BUCKETS, chunk_jobs
+    jobs = chunk_jobs(seqs, w, k, DEV_BUCKETS[-1][0])
+    (p0, b0), (_, b1) = DEV_BUCKETS
+    small = sum(len(j[2]) <= p0 + w + k + 1 for j in jobs)
+    return -(-small // b0) + -(-(len(jobs) - small) // b1), len(jobs)
+
+
+def seed_device_phase(ref, gfa, work, kernels, ggen_out):
+    """Phase 11: --seed-device at full width.  (a) K1 on real chunk
+    batches at asm's widths, (b) the device index and the sweep against
+    the host, (c) -cxggs with the seed stage on the card, (d) -xasm
+    --write-mz --seed-device on one ~5 Mb query.  Returns the K1 numbers
+    at (16, 32809) and the launches of run (d)."""
+    from minigraph_tpu_torch import cli
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index import midx_device
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.index.sketch import sketch
+    from minigraph_tpu_torch.mapping import mapper
+    from minigraph_tpu_torch.ops.sketch import encode_batch
+    from minigraph_tpu_torch.options import (GGOptions, IndexOptions,
+                                             MapOptions, opt_set)
+    from minigraph_tpu_torch.seqio.bseq import read_all
+    from minigraph_tpu_torch.tools.synth import (cut_contigs, make_haplotype,
+                                                 write_fasta)
+    DB = midx_device.DEV_BUCKETS
+    hap7 = make_haplotype(ref, seed=7)
+
+    # (a) K1 at the sweep's widths on its first batch of each bucket for
+    # phase 7 (a)'s contigs (the jobs, padding and widths of
+    # sketch_segments_device), then the batches of one whole haplotype
+    w, k = 10, 19
+    halo = w + k + 1
+    jobs = midx_device.chunk_jobs([s_ for _, s_ in cut_contigs(hap7, seed=8)],
+                                  w, k, DB[-1][0])
+    k1 = {}
+    for (pay, bsz) in DB:
+        texts = [j[2] for j in jobs
+                 if (len(j[2]) <= DB[0][0] + halo) == (pay == DB[0][0])]
+        texts = texts[:bsz]
+        n_real = len(texts)
+        codes, lens = encode_batch(texts + [""] * (bsz - n_real),
+                                   pad_to=pay + halo + w + 1)
+        k1[pay] = check_sketch_codes(codes, lens, w, k,
+                                     reps=5 if pay > DB[0][0] else 20)
+        log(f"phase 11 (a) sketch (19, 10) at {codes.shape}, a sweep batch "
+            f"of {n_real} chunk jobs: {json.dumps(k1[pay])}")
+    n_b, n_j = sweep_launches([hap7], w, k)
+    log(f"phase 11 (a) one {len(hap7)} bp contig: {n_j} chunk jobs, "
+        f"{n_b} K1 batches of the sweep")
+
+    # (b) the device index at lr's and asm's settings against the host
+    # build; the sweep against the host sketch on every segment plus a
+    # tandem sequence whose planes overflow
+    for preset in ("lr", "asm"):
+        io_, mo_h, mo_d = IndexOptions(), MapOptions(), MapOptions()
+        opt_set(preset, io_, mo_h, GGOptions())
+        opt_set(preset, io_, mo_d, GGOptions())
+        g = read_gfa(gfa)
+        t0 = time.perf_counter()
+        gi_h = build_index(g, io_.k, io_.w, mo_h)
+        t_h = time.perf_counter() - t0
+        segs = [s.seq for s in g.seg if s.seq and s.len > 0]
+        g = read_gfa(gfa)
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        gi_d = midx_device.build_index_device(g, io_.k, io_.w, mo_d,
+                                              device="cuda")
+        torch.cuda.synchronize()
+        t_d = time.perf_counter() - t0
+        lc = kernels.launches["sketch"]
+        for f in ("keys", "key_start", "key_cnt", "pos"):
+            if not np.array_equal(getattr(gi_h, f), getattr(gi_d, f)):
+                raise AssertionError(f"phase 11 (b) {preset}: device index "
+                                     f"{f} differs")
+        if (mo_h.occ_max1, mo_h.lc_max_occ) != (mo_d.occ_max1,
+                                                mo_d.lc_max_occ):
+            raise AssertionError(f"phase 11 (b) {preset}: occurrence "
+                                 f"thresholds differ")
+        want_lc, n_jobs = sweep_launches(segs, io_.w, io_.k)
+        if lc != want_lc:
+            raise AssertionError(f"phase 11 (b) {preset}: {lc} K1 launches,"
+                                 f" {want_lc} chunk batches")
+        log(f"phase 11 (b) build_index_device, {preset} (k={io_.k}, "
+            f"w={io_.w}): tables equal to build_index's ({len(gi_d.keys)} "
+            f"keys, {len(gi_d.pos)} positions); {len(segs)} segments, "
+            f"{n_jobs} chunk jobs, {lc} K1 launches; {t_d:.2f} s against "
+            f"{t_h:.2f} s for build_index (the native sketch_many)")
+        fell = []
+        real_host = midx_device.host_sketch
+        midx_device.host_sketch = lambda s_, w_, k_, rid: \
+            fell.append(len(s_)) or real_host(s_, w_, k_, rid)
+        try:
+            tandem = "ACGT" * 1500
+            got = midx_device.sketch_segments_device(
+                segs + [tandem], io_.w, io_.k, device="cuda")
+        finally:
+            midx_device.host_sketch = real_host
+        for i, (s_, (x, y)) in enumerate(zip(segs + [tandem], got)):
+            hx, hy = sketch(s_, io_.w, io_.k, rid=0)
+            if not (np.array_equal(x, hx) and np.array_equal(y, hy)):
+                raise AssertionError(f"phase 11 (b) {preset}: sweep "
+                                     f"differs from the host on seq {i}")
+        if fell != [len(tandem)]:
+            raise AssertionError(f"phase 11 (b) {preset}: host fallback "
+                                 f"for lengths {fell}")
+        log(f"phase 11 (b) sketch_segments_device, {preset}: every segment "
+            f"equal to the host sketch; the tandem sequence overflowed and "
+            f"went whole to the host sketch")
+
+    # (c) graph generation with the seed stage on the card: phase 10's
+    # run with --seed-device, the same rGFA bytes; each contig of 16384
+    # bp or more maps once (map_one) and sweeps once
+    samples, ggs_gfa, t_ggs = ggen_out
+    out_c = str(work / "ggs_seed_device.gfa")
+    n_long, want_lc = 0, 0
+    for fa in samples[:2]:
+        for r in read_all(fa):
+            if len(r.seq) >= mapper.SEED_DEVICE["min_len"]:
+                n_long += 1
+                want_lc += sweep_launches([r.seq.upper()], 10, 19)[0]
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        rc = cli.main(["-cxggs", "-l10k", "-t8", "--seed-device", "-o",
+                       out_c, gfa, samples[0], samples[1]])
+    finally:
+        mapper.SEED_DEVICE["on"] = False
+    t_c = time.perf_counter() - t0
+    lc = kernels.launches["sketch"]
+    if rc or open(out_c).read() != open(ggs_gfa).read():
+        raise AssertionError(f"phase 11 (c): exit {rc}, rGFA differs from "
+                             f"phase 10's")
+    if lc != want_lc:
+        raise AssertionError(f"phase 11 (c): {lc} K1 launches for "
+                             f"{want_lc} chunk batches")
+    log(f"phase 11 (c) -cxggs -l10k --seed-device (graph generation: "
+        f"map_one, the per-read path): rGFA bytes equal to phase 10's; "
+        f"{t_c:.1f} s against {t_ggs:.1f} s; {n_long} contigs of 16384 bp "
+        f"or more on the device route, {lc} K1 launches")
+
+    # (d) one whole haplotype as one query, -xasm --write-mz: its output
+    # shape takes the Python reader loop, the query the device route
+    q_fa = str(work / "hap7.fa")
+    write_fasta(q_fa, [("hap7", hap7)])
+    outs, times = [], []
+    for extra in (["--device", "none"], ["--seed-device"]):
+        path = str(work / f"hap7{len(outs)}.gaf")
+        kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            rc = cli.main(["-xasm", "--write-mz", "-t8", "-o", path]
+                          + extra + [gfa, q_fa])
+        finally:
+            mapper.SEED_DEVICE["on"] = False
+        times.append(time.perf_counter() - t0)
+        lc_d = dict(kernels.launches)
+        if rc:
+            raise AssertionError(f"phase 11 (d): exit {rc}")
+        outs.append(open(path).read())
+    if outs[0] != outs[1]:
+        raise AssertionError(f"phase 11 (d): GAF differs at line "
+                             f"{first_diff(outs[1], outs[0])}")
+    want_lc = sweep_launches([hap7], 10, 19)[0]
+    if lc_d["sketch"] != want_lc:
+        raise AssertionError(f"phase 11 (d): {lc_d} launches for "
+                             f"{want_lc} chunk batches")
+    n_mz = sum(ln.startswith("*\t") for ln in outs[0].splitlines())
+    log(f"phase 11 (d) -xasm --write-mz --seed-device on one {len(hap7)} "
+        f"bp query (the Python reader loop, the device route): GAF bytes "
+        f"equal to --device none without --seed-device "
+        f"({outs[0].count(chr(10))} lines, {n_mz} chain lines); "
+        f"{times[1]:.1f} s against {times[0]:.1f} s; launches {lc_d}")
+    return k1[DB[-1][0]], lc_d
 
 
 def main() -> int:
@@ -1721,7 +1934,11 @@ def main() -> int:
     k_gwfa, gwfa_launches = gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads)
 
     # ---- 10. graph generation, bubble calls, mapping on the new graph
-    ggen_phase(ref, gfa, work, reads_fa, n_reads)
+    ggen_out = ggen_phase(ref, gfa, work, reads_fa, n_reads)
+
+    # ---- 11. --seed-device: the sweep, the device index, graph
+    # generation and one whole haplotype with the seed stage on the card
+    k1_sd, sd_launches = seed_device_phase(ref, gfa, work, kernels, ggen_out)
 
     entries = [
         dict(name="sketch", route="cuda",
@@ -1769,6 +1986,12 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/gwfa.cu",
              replaces="minigraph_tpu/ops/gwfa_jax.py:189",
              launches=gwfa_launches["gwfa"], library_ms=None, **k_gwfa),
+        # K1 again, on this slice's path: the chunk-halo sweep of
+        # --seed-device at its (16, 32809) width, launches of run 11 (d)
+        dict(name="sketch_seed_device", route="cuda",
+             source="minigraph_tpu_torch/csrc/sketch.cu",
+             replaces="minigraph_tpu/ops/sketch_pallas.py:44",
+             launches=sd_launches["sketch"], library_ms=None, **k1_sd),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -10,13 +10,14 @@ here, whose wfa_auto falls back to the chain heuristic.
 from __future__ import annotations
 
 import ctypes
+import sys
 from dataclasses import dataclass, field
 from typing import List, Optional
 
 import numpy as np
 
 from ..mapping.gchain import Cigar, GChains
-from ..options import MG_SEED_IGNORE
+from ..options import DBG, MG_DBG_MINIWFA, MG_DBG_MWF_SEQ, MG_SEED_IGNORE
 from ..utils.native import get_lib
 from .wfa import wfa_auto
 
@@ -147,10 +148,13 @@ def _gchain_cigar_native(es, qbytes: bytes, gt: GChains, gc) -> bool:
 
 def gchain_cigar(g, es, qseq: str, gt: GChains, qname: Optional[str]) -> None:
     """Walk anchors of each gchain, align the inter-anchor gaps with WFA
-    and merge into one graph CIGAR (galign.c:39-145)."""
+    and merge into one graph CIGAR (galign.c:39-145).  The long-WFA
+    dumps (--dbg-mwf-long, --dbg-mwf-seq) are written by the Python
+    walk, so they keep every chain off the native one."""
+    dbg_mwf = DBG["flag"] & (MG_DBG_MINIWFA | MG_DBG_MWF_SEQ)
     qbytes = qseq.encode("latin-1")
     for gc in gt.gc:
-        if _gchain_cigar_native(es, qbytes, gt, gc):
+        if not dbg_mwf and _gchain_cigar_native(es, qbytes, gt, gc):
             continue
         l0 = gc.off
         off_a0 = gt.lc[l0].off
@@ -197,6 +201,18 @@ def gchain_cigar(g, es, qseq: str, gt: GChains, qname: Optional[str]) -> None:
                 _append1(cigar, 7, qlen)
             else:
                 rst = wfa_auto(seq, qgap, cigar=True)
+                if dbg_mwf and l_seq > 5000 and qlen > 5000 \
+                        and rst.s >= 10000:
+                    # long-WFA logging (galign.c:109-121)
+                    if DBG["flag"] & MG_DBG_MINIWFA:
+                        sys.stderr.write(
+                            f"WL\t{qname}\t{j}\t{_i32(qy) + 1}\t"
+                            f"{_i32(py) - _i32(qy)}\t{l_seq}\t{rst.s}\n")
+                    if DBG["flag"] & MG_DBG_MWF_SEQ:
+                        sys.stderr.write(
+                            f"WL\t{qname}\t{j}\t{_i32(qy) + 1}\t{rst.s}\n"
+                            f"WT\t{seq.decode('latin-1')}\n"
+                            f"WQ\t{qgap.decode('latin-1')}\n")
                 _append_many(cigar, rst.cigar or [])
             j0 = j
             l0 = l

@@ -31,10 +31,12 @@ class DeviceGwfaPool:
     """Solves bridge jobs on `device` ("cuda" launches the kernel, "cpu"
     runs the plain version); counts jobs, jobs solved on the device,
     jobs flagged to the host, jobs over the largest bucket and batches
-    (kernel calls), and adds up the batches' time in kernel_ms: CUDA
-    events on the pool's own stream on the card, so that kernels the
-    front launches from other threads fall outside the window, and the
-    host clock on the CPU.  The Python loop's reader threads share one
+    (kernel calls), and adds up two times a batch: kernel_ms, the launch
+    alone (`gwfa_batch`'s `timing`), and batch_ms, the whole wrapper call
+    with its host work (on the CPU the job packing too).  On the
+    card both are CUDA events on the pool's own stream, so that kernels
+    the front launches from other threads fall outside them; on the CPU
+    both are the host clock.  The Python loop's reader threads share one
     pool: a lock keeps its calls and counts whole."""
 
     def __init__(self, gi, device="cuda"):
@@ -47,6 +49,7 @@ class DeviceGwfaPool:
         self.n_oversize = 0
         self.n_batches = 0
         self.kernel_ms = 0.0
+        self.batch_ms = 0.0
         self._stream = None
         self._lock = threading.Lock()
 
@@ -62,24 +65,27 @@ class DeviceGwfaPool:
         return self._gd
 
     def _solve(self, rows, qcap, J):
-        """One gwfa_batch call, timed into kernel_ms; returns its outputs
-        as numpy arrays."""
+        """One gwfa_batch call, timed into kernel_ms and batch_ms;
+        returns its outputs as numpy arrays."""
         gd = self.graph()
+        launch = []
         if self._stream is None:
             t0 = time.perf_counter()
             res = gwfa_batch(gd, *pack_jobs(rows, qcap, J, self.device),
-                             degcap=DEGCAP)
-            self.kernel_ms += (time.perf_counter() - t0) * 1e3
+                             degcap=DEGCAP, timing=launch)
+            self.batch_ms += (time.perf_counter() - t0) * 1e3
+            self.kernel_ms += sum(launch)
             return {key: v.numpy() for key, v in res.items()}
         with torch.cuda.stream(self._stream):
             args = pack_jobs(rows, qcap, J, self.device)
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            res = gwfa_batch(gd, *args, degcap=DEGCAP)
+            res = gwfa_batch(gd, *args, degcap=DEGCAP, timing=launch)
             e1.record()
             res = {key: v.cpu().numpy() for key, v in res.items()}
-        self.kernel_ms += e0.elapsed_time(e1)
+        self.batch_ms += e0.elapsed_time(e1)
+        self.kernel_ms += sum(k0.elapsed_time(k1) for k0, k1 in launch)
         return res
 
     def run(self, jobs: np.ndarray, qseq: str):

@@ -16,6 +16,7 @@ Options, as minigraph's:
   -c                     base-level alignment (cg:Z, ds:Z)
   -P -D -S               all chains, skip self-diagonal hits, write
                          linear chains
+  --write-mz             -S with each chain's minimizer positions
   -o FILE                output file
   --vc --secondary=yes|no --heap-sort=yes|no --show-unmap=yes|no
   --rmq[=yes|no] --no-comp-path --frag --gap-pen FLOAT --ref-bonus INT
@@ -32,12 +33,21 @@ Options, as minigraph's:
   --device cuda|cpu|none  where the seed (and chain) stages run: cuda
                          (default) on the card, cpu their plain versions,
                          none every read on the native host path.
+  --tpu                  --device cuda
   --gwfa-device          bridge the graph chains with the device GWFA
                          pool: on the card with --device cuda or none,
                          its plain version with --device cpu.
-
-Refused with a message (exit 1) until the port has their stages:
---seed-device, --tpu, --write-mz and the --dbg-* and --no-kalloc dumps.
+  --seed-device          sketch queries of 16384 bp or more that take the
+                         per-read path (graph generation, the Python
+                         reader loop) with the chunk-halo sweep: on the
+                         card with --device cuda or none, its plain
+                         version with --device cpu.
+  --dbg-seed --dbg-lchain --dbg-gc1 --dbg-qname --dbg-insert
+  --dbg-lc-prof --dbg-mwf-long --dbg-mwf-seq --dbg-shortk --no-kalloc
+                         minigraph's debug dumps (stderr; --dbg-lchain's
+                         LC lines on stdout).  Any of them maps every
+                         read on the per-read path; --dbg-shortk and
+                         --no-kalloc write nothing.
 """
 from __future__ import annotations
 
@@ -49,14 +59,17 @@ from . import MG_VERSION_COMPAT
 from .ggen.driver import ggen
 from .graph.bubbles import sort_ref_arc
 from .graph.gfa_io import read_gfa, write_gfa
-from .mapping.mapper import map_files
-from .options import (MG_G_CAL_COV, MG_G_CALL, MG_G_GGSIMPLE, MG_G_NO_INV,
+from .mapping.mapper import SEED_DEVICE, map_files
+from .options import (DBG, MG_DBG_GC1, MG_DBG_INSERT, MG_DBG_LC_PROF,
+                      MG_DBG_LCHAIN, MG_DBG_MINIWFA, MG_DBG_MWF_SEQ,
+                      MG_DBG_NO_KALLOC, MG_DBG_QNAME, MG_DBG_SEED,
+                      MG_DBG_SHORTK, MG_G_CAL_COV, MG_G_CALL, MG_G_GGSIMPLE, MG_G_NO_INV,
                       MG_G_NO_QOVLP, MG_M_ALL_CHAINS, MG_M_CAL_COV,
                       MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_FRAG_MODE,
                       MG_M_HEAP_SORT, MG_M_NO_COMP_PATH, MG_M_NO_DIAG,
                       MG_M_PRINT_2ND, MG_M_RMQ, MG_M_SHOW_UNMAP,
                       MG_M_SKIP_GCHECK, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN,
-                      GGOptions, IndexOptions, MapOptions, opt_check,
+                      MG_M_WRITE_MZ, GGOptions, IndexOptions, MapOptions, opt_check,
                       opt_set)
 from .utils.syslog import final_log, mlog
 
@@ -73,12 +86,14 @@ _LONG = [
     "dbg-lc-prof", "dbg-mwf-long", "dbg-mwf-seq", "no-kalloc", "tpu",
     "gwfa-device", "seed-device", "device=",
 ]
-# options of stages the port does not have yet
-_REFUSED = {
-    "--write-mz": "minimizer dumps",
-    "--seed-device": "the device long-query sketch",
-    "--tpu": "the TPU (use --device)",
-    "--no-kalloc": "debug output",
+# the debug bits of --dbg-* and --no-kalloc (process-wide, as in
+# minigraph)
+_DBG_BITS = {
+    "--dbg-seed": MG_DBG_SEED, "--dbg-lchain": MG_DBG_LCHAIN,
+    "--dbg-gc1": MG_DBG_GC1, "--dbg-shortk": MG_DBG_SHORTK,
+    "--dbg-qname": MG_DBG_QNAME, "--dbg-insert": MG_DBG_INSERT,
+    "--dbg-lc-prof": MG_DBG_LC_PROF, "--dbg-mwf-long": MG_DBG_MINIWFA,
+    "--dbg-mwf-seq": MG_DBG_MWF_SEQ, "--no-kalloc": MG_DBG_NO_KALLOC,
 }
 # options whose argument is optional (--rmq, --rmq=no): getopt has no
 # such kind, so the attached form is renamed before it parses
@@ -125,12 +140,6 @@ def _split_optional(argv: List[str]) -> List[str]:
     return out
 
 
-def _refuse(opt: str, what: str) -> int:
-    sys.stderr.write(f"[ERROR] option '{opt}' ({what}) is not supported "
-                     "by the port yet\n")
-    return 1
-
-
 def main(argv: Optional[List[str]] = None) -> int:
     argv = list(sys.argv[1:] if argv is None else argv)
     io_, mo, go = IndexOptions(), MapOptions(), GGOptions()
@@ -148,10 +157,8 @@ def main(argv: Optional[List[str]] = None) -> int:
     out = sys.stdout
     n_threads = 4
     device = "cuda"
-    gwfa_device = False
+    gwfa_device = seed_device = False
     for k, v in opts:
-        if k in _REFUSED or k.startswith("--dbg-"):
-            return _refuse(k, _REFUSED.get(k, "debug output"))
         if k == "-w":
             io_.w = int(v)
         elif k == "-k":
@@ -246,6 +253,14 @@ def main(argv: Optional[List[str]] = None) -> int:
             go.flag |= MG_G_CAL_COV
         elif k == "--gwfa-device":
             gwfa_device = True
+        elif k == "--seed-device":
+            seed_device = True
+        elif k == "--tpu":
+            device = "cuda"
+        elif k == "--write-mz":
+            mo.flag |= MG_M_WRITE_MZ | MG_M_WRITE_LCHAIN
+        elif k in _DBG_BITS:
+            DBG["flag"] |= _DBG_BITS[k]
         elif k == "--rmq":
             mo.flag |= MG_M_RMQ
         elif k == "--rmq-arg":
@@ -286,13 +301,15 @@ def main(argv: Optional[List[str]] = None) -> int:
     if not args:
         sys.stderr.write(USAGE)
         return 1
+    # the device pools follow --device: the plain versions on the CPU,
+    # else the card
+    pool_dev = "cpu" if device == "cpu" else "cuda"
+    if seed_device:
+        SEED_DEVICE.update(on=True, device=pool_dev)
     g = read_gfa(args[0])
     mlog("main", f'loaded the graph from "{args[0]}"')
     if go.algo == 0 and not (go.flag & MG_G_CALL):
-        # the GWFA pool follows --device: the plain version on the CPU,
-        # else the card
-        pool = ("cpu" if device == "cpu" else "cuda") if gwfa_device \
-            else None
+        pool = pool_dev if gwfa_device else None
         ret = map_files(g, args[1:], io_, mo, out=out, n_threads=n_threads,
                         device=device, gwfa_device=pool)
     else:

@@ -11,7 +11,8 @@ from ..align.wfa import WfOpt, wfa_exact
 from ..graph.augment import InsEvent, augment, ins_adj, ins_filter
 from ..graph.gfa import Graph, revcomp
 from ..mapping.gchain import GChains
-from ..options import GGOptions, MG_G_NO_INV, MG_G_NO_QOVLP
+from ..options import (DBG, MG_DBG_INSERT, MG_G_NO_INV, MG_G_NO_QOVLP,
+                       GGOptions)
 from ..utils.algo import IntervalSet, mss_all
 
 
@@ -170,6 +171,24 @@ def _common_event_filter(g: Graph, opt: GGOptions, gt: GChains, t: int,
                                         qfrag.encode("latin-1"), 5000)
             if score > 0 and mlen > blen * opt.ggs_min_inv_iden:
                 is_inv = True
+    if DBG["flag"] & MG_DBG_INSERT:  # ggsimple.c:247-257 stage dump
+        qd = I.coff[1] - I.coff[0]
+        pseq = path2seq(g, gt, path_ls, path_le, I.voff)
+        sys.stderr.write(
+            "IN\t[%c%s:%d,%c%s:%d|%d] <=> %s:[%d,%d|%d] inv:%d\n"
+            % ("><"[I.v[0] & 1], g.seg[I.v[0] >> 1].name, I.voff[0],
+               "><"[I.v[1] & 1], g.seg[I.v[1] >> 1].name, I.voff[1], pd,
+               seq.name, I.coff[0], I.coff[1], qd, int(is_inv)))
+        sys.stderr.write(f"IP\t{pseq}\nIQ\t"
+                         + seq.seq[I.coff[0]: I.coff[1]])
+        if pd - qd < opt.min_var_len and qd - pd < opt.min_var_len:
+            score, mlen, blen = wfa_cmp(
+                pseq.encode("latin-1"),
+                seq.seq[I.coff[0]: I.coff[1]].encode("latin-1"), 5000)
+        else:
+            score, mlen, blen = -1, 0, max(pd, qd)
+        sys.stderr.write(f"\nIS\t{pd}=={len(pseq)}\tnwcmp:{score}"
+                         f"\tmlen:{mlen}\tblen:{blen}\n")
     return is_inv
 
 

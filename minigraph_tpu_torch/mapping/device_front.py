@@ -42,7 +42,7 @@ import torch
 
 from .. import kernels
 from ..index.midx import MinimizerIndex
-from ..options import (MG_M_HEAP_SORT, MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE,
+from ..options import (DBG, MG_M_HEAP_SORT, MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE,
                        MG_M_SR, MapOptions)
 from ..ops.anchors import (HashJoinIndex, JoinIndex, collect_anchors_exact,
                            collect_anchors_exact_hash)
@@ -393,6 +393,9 @@ class DeviceFront:
 
     # ------------------------------------------------------------------
     def eligible(self, opt: MapOptions, n_segs: int, qlen_sum: int) -> bool:
+        if DBG["flag"]:
+            # debug dumps are written on the per-read path
+            return False
         if n_segs != 1 or qlen_sum == 0 or qlen_sum > self.max_len:
             return False
         if opt.flag & (MG_M_HEAP_SORT | MG_M_NO_DIAG):

@@ -23,8 +23,9 @@ import numpy as np
 from ..align.gwfa import gwfa_bridge
 from ..align.gwfa_device import WCAP, GwfaBatchSink, GwfaPending
 from ..graph.shortk import PathDst, shortest_k
-from ..options import (MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
-                       MG_M_SPLICE, MG_M_SR, MG_MAX_SHORT_K)
+from ..options import (DBG, MG_DBG_GC1, MG_M_NO_COMP_PATH, MG_M_PRINT_2ND,
+                       MG_M_SHOW_UNMAP, MG_M_SPLICE, MG_M_SR,
+                       MG_MAX_SHORT_K)
 from ..utils.hashes import kh_hash_uint32, mg_log2
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
@@ -150,8 +151,10 @@ def _gdp_core(g, arrs, n_lc, qlen, max_dist_g, max_dist_q, bw, max_skip,
 
     arrs = (v, off, cnt, score, qs, qe, rs, re) int64 arrays.  Returns
     (n_u, u, order, dist_pre, hash_pre, inner_pre) or None when the
-    engine overflows."""
+    engine overflows or --dbg-gc1 asks for the Python DP's dump."""
     global _gdp_cfg
+    if DBG["flag"] & MG_DBG_GC1:
+        return None
     lib = get_lib()
     if not _gdp_cfg:
         lib.mgt_gchain1_dp.restype = ct.c_int64
@@ -398,12 +401,22 @@ def gchain1_dp(g, lc: List[LChain], qlen: int, max_dist_g: int,
                 continue
             kept.append(dj)
         # DP
+        dbg_gc1 = bool(DBG["flag"] & MG_DBG_GC1)
         max_f, max_j, max_d, max_inner = li.score, -1, -1, 0
         max_hash = 0
         for dj in kept:
             sc = _cal_sc(dj, li, lc, ay, a_i, f, bw, ref_bonus, chn_pen_gap)
             if sc == INT32_MIN:
                 continue
+            if dbg_gc1:  # gchain1.c:195-198 stage dump
+                lj = lc[a_i[dj.meta]]
+                seg_len = g.seg[li.v >> 1].len
+                sys.stderr.write(
+                    "  [dst:%d] dst=%c%s[%d], n_path=%d, target=%d, "
+                    "opt_dist=%d, score=%d, q_intv=[%d,%d), g_intv=[%d,%d)\n"
+                    % (dj.meta, "><"[dj.v & 1], g.seg[dj.v >> 1].name,
+                       dj.v, dj.n_path, dj.target_dist - seg_len,
+                       dj.dist - seg_len, sc, lj.qs, lj.qe, lj.rs, lj.re))
             if sc > max_f:
                 max_f, max_j = sc, dj.meta
                 max_d, max_hash, max_inner = dj.dist, dj.hash, dj.inner
@@ -413,6 +426,22 @@ def gchain1_dp(g, lc: List[LChain], qlen: int, max_dist_g: int,
         li.hash_pre = max_hash
         li.inner_pre = max_inner
         v[i] = v[max_j] if (max_j >= 0 and v[max_j] > max_f) else max_f
+        if dbg_gc1:  # gchain1.c:206
+            sys.stderr.write(" [opt:%d] opt=%d, max_f=%d\n"
+                             % (a_i[i], max_j, max_f))
+
+    if DBG["flag"] & MG_DBG_GC1:  # gchain1.c:211-214
+        mmax_f, mmax_i = 0, -1
+        for i in range(n_ext):
+            if f[i] > mmax_f:
+                mmax_f, mmax_i = f[i], i
+        i = mmax_i
+        while i >= 0:
+            sys.stderr.write(
+                "[best] i=%d, seg=%s, max_f=%d, chn_pen_gap=%f\n"
+                % (a_i[i], g.seg[lc[a_i[i]].v >> 1].name, f[i],
+                   chn_pen_gap))
+            i = p[i]
 
     u, vv, n_u, n_v = chain_backtrack(n_ext, f, p, 0, 0, 0x7FFFFFFF,
                                       n_lc - n_ext)
@@ -747,6 +776,8 @@ def gchain_full_tab(g, es, tab, qlen: int, max_dist_g: int,
     score sort) in ONE native call (mgt_gchain_full).  Returns a
     GChains or None (caller falls back to the two-step path)."""
     global _full_cfg
+    if DBG["flag"] & MG_DBG_GC1:
+        return None
     lib = get_lib()
     if not _full_cfg:
         lib.mgt_gchain_full.restype = ct.c_int64
@@ -1074,12 +1105,15 @@ def map_tail_full(g, es, mode: int, chains_u, ax, ay, mini_pos, opt,
     graph-chain stage + selection (+ GAF text with `emit`).  Returns a
     GChains, or None for the decomposed path when the engine bails
     (status -1 alloc, -2 output caps, -3 bridge warning or reference
-    assert).  With `gwfa_pool` (align/gwfa_device.py) the bridges of the
+    assert) or a debug bit is set (the dumps are written there).  With `gwfa_pool` (align/gwfa_device.py) the bridges of the
     graph-chain stage run on the device pool: a DeviceGwfaPool solves
     the read's jobs at once; a GwfaBatchSink in its phase 1 collects them
     and the read comes back as a GwfaPending, in phase 2 they are
     injected from the batch's one dispatch."""
     global _mt_cfg
+    if DBG["flag"]:
+        # debug dumps are written by the decomposed stages
+        return None
     lib = get_lib()
     if not _mt_cfg:
         lib.mgt_map_tail.restype = ct.c_int64

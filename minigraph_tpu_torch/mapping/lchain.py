@@ -12,12 +12,14 @@ copied.
 from __future__ import annotations
 
 import ctypes as ct
+import sys
 import threading
 from dataclasses import dataclass
 from typing import List
 
 import numpy as np
 
+from ..options import DBG, MG_DBG_LC_PROF
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
 
@@ -121,6 +123,15 @@ def _native_chain(fn_name: str, args_pre, ax: np.ndarray, ay: np.ndarray):
     n_u = ct.c_int32(0)
     n_v = getattr(lib, fn_name)(*args_pre, n, ax.ctypes.data,
                                 ay.ctypes.data, u.ctypes.data, ct.byref(n_u))
+    if DBG["flag"] & MG_DBG_LC_PROF:
+        # the engine's counters of this call (lchain.c stats)
+        stats = (ct.c_int64 * 4).in_dll(lib, "mgt_lchain_stats")
+        if fn_name == "mgt_lchain_dp":
+            sys.stderr.write(f"LP\tn_iter={stats[0]}\tmmax_f={stats[1]}\n")
+        else:
+            sys.stderr.write(
+                f"LP\tn_iter={stats[0]}\tmmax_f={stats[1]}\t"
+                f"rmq_size={stats[2]}\tmp_max={stats[3]}\n")
     if n_u.value == 0:
         return (np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.uint64),
                 0, np.empty(0, dtype=np.uint64))

@@ -46,6 +46,7 @@ from __future__ import annotations
 import copy
 import ctypes as ct
 import sys
+import threading
 import time
 from typing import List, Optional
 
@@ -59,7 +60,8 @@ from ..align.gwfa_device import DeviceGwfaPool, GwfaBatchSink, GwfaPending
 from ..ggen.cov import aux_update_cv, cov_map
 from ..graph.gfa import Graph, revcomp
 from ..index.midx import MinimizerIndex, build_index
-from ..options import (MG_M_CAL_COV, MG_M_CIGAR, MG_M_FRAG_MERGE,
+from ..options import (DBG, MG_DBG_LCHAIN, MG_DBG_QNAME, MG_DBG_SEED,
+                       MG_M_CAL_COV, MG_M_CIGAR, MG_M_FRAG_MERGE,
                        MG_M_FRAG_MODE, MG_M_HEAP_SORT, MG_M_INDEPEND_SEG,
                        MG_M_NO_DIAG, MG_M_RMQ, MG_M_SPLICE, MG_M_SR,
                        MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN, MG_M_WRITE_MZ,
@@ -73,24 +75,37 @@ from . import gchain, lchain
 from .lchain import _i32
 from .filters import apply_chain_filters
 from .native_tail import chain_penalties, map_batch_native
-from .seeds import (collect_minimizers, collect_native, collect_seed_hits,
+from .seeds import (collect_minimizers, collect_minimizers_device,
+                    collect_native, collect_seed_hits,
                     collect_seed_hits_heap)
 from .select import (gchain_drop_flt, gchain_flt_sub, gchain_set_mapq,
                      gchain_set_parent)
 
 U32 = 0xFFFFFFFF
-# options whose stages the port does not have yet: minimizer dumps
-# (--write-mz), spliced chains
-UNSUPPORTED_FLAGS = MG_M_WRITE_MZ | MG_M_SPLICE
+# spliced chains: no preset of the command line sets the flag, and the
+# port has no stage for it
+UNSUPPORTED_FLAGS = MG_M_SPLICE
 # output shapes the native GAF formatter of the per-read tail does not
 # write: such reads are serialized by seqio/gaf.py (--cov: no GAF)
 _EMIT_BAIL_FLAGS = (MG_M_CIGAR | MG_M_CAL_COV | MG_M_FRAG_MODE
-                    | MG_M_FRAG_MERGE | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR)
+                    | MG_M_FRAG_MERGE | MG_M_WRITE_LCHAIN | MG_M_WRITE_MZ
+                    | MG_M_VERTEX_COOR)
 # -c does not bail the batch: its workers run the base-level stage
 # (CIGAR and ds) natively
 _EMIT_BAIL_NOCIG = _EMIT_BAIL_FLAGS & ~MG_M_CIGAR
 # the native batch writes merged pairs too; these shapes still bail
-_EMIT_BAIL_BATCH = MG_M_CAL_COV | MG_M_WRITE_LCHAIN | MG_M_VERTEX_COOR
+_EMIT_BAIL_BATCH = (MG_M_CAL_COV | MG_M_WRITE_LCHAIN | MG_M_WRITE_MZ
+                    | MG_M_VERTEX_COOR)
+
+# --seed-device: the seed stage of a long query (qlen_sum >= min_len,
+# no --heap-sort) on the per-read path sketches through the chunk-halo
+# sweep (index/midx_device.py) on `device` instead of the native
+# collect.  The bytes are the same, so it is a routing decision only.
+# Module state, as in the JAX package, because graph generation
+# (`map_one`), the Python reader loop and the per-read fallback all
+# reach map_frag; the lock keeps the reader threads' sweeps whole.
+SEED_DEVICE = {"on": False, "min_len": 16384, "device": "cuda"}
+_SEED_DEVICE_LOCK = threading.Lock()
 
 
 def _batch_mode_ok(flag: int) -> bool:
@@ -136,14 +151,24 @@ def map_frag(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
         return None
     if opt.max_qlen > 0 and qlen_sum > opt.max_qlen:
         return None
+    if DBG["flag"] & MG_DBG_QNAME:
+        sys.stderr.write(f"QR\t{qname}\t0\t{qlen_sum}\n")
     res = None
-    if n_segs == 1 and not (opt.flag & (MG_M_HEAP_SORT | MG_M_NO_DIAG)):
+    seed_dev = (SEED_DEVICE["on"] and qlen_sum >= SEED_DEVICE["min_len"]
+                and not (opt.flag & MG_M_HEAP_SORT))
+    if n_segs == 1 and not (opt.flag & (MG_M_HEAP_SORT | MG_M_NO_DIAG)) \
+            and not seed_dev and not DBG["flag"]:
         # whole seed stage in one native call (native/mgt_collect.c)
         res = collect_native(gi, opt, opt.occ_max1, seqs[0])
     if res is not None:
         ax, ay, rep_len, mini_pos, n_mv = res
     else:
-        mv_x, mv_y = collect_minimizers(gi, qlens, seqs)
+        if seed_dev:
+            with _SEED_DEVICE_LOCK:
+                mv_x, mv_y = collect_minimizers_device(
+                    gi, qlens, seqs, SEED_DEVICE["device"])
+        else:
+            mv_x, mv_y = collect_minimizers(gi, qlens, seqs)
         n_mv = len(mv_x)
         if opt.flag & MG_M_HEAP_SORT:
             ax, ay, rep_len, mini_pos = collect_seed_hits_heap(
@@ -191,6 +216,17 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
         max_chain_gap_ref = opt.max_gap
     chn_pen_gap, chn_pen_skip = chain_penalties(gi, opt)
     seq_cat = "".join(seqs)
+    if DBG["flag"] & MG_DBG_SEED:
+        _dump_seeds(gi, ax, ay, rep_len)
+    # --dbg-qname: wall-clock stage times (print_time, map-algo.c:332-338)
+    qt = time.time() if DBG["flag"] & MG_DBG_QNAME else None
+
+    def stage_time(stage):
+        nonlocal qt
+        if qt is not None:
+            t = time.time()
+            sys.stderr.write(f"Q{stage}\t{qname}\t{t - qt:.3f}\n")
+            qt = t
 
     # whole-tail native path (native/mgt_tail.c): linear chain + rescue
     # + lchain tail + graph chain + selection in ONE call
@@ -251,10 +287,11 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                 opt.rmq_size_cap, opt.min_lc_cnt, opt.min_lc_score,
                 chn_pen_gap, chn_pen_skip, ax, ay)
 
+    stage_time(1)
     # fused native tail (native/mgt_gchain.c): lchain_gen + filter
     # block + update_anchors in one call, chains kept as a table
     tab = None
-    if n_lc:
+    if n_lc and not (DBG["flag"] & MG_DBG_LCHAIN):
         tab = lchain.lchain_tail_tab(qlen_sum, n_lc, u, ax, ay, mini_pos,
                                      opt)
     if tab is None:
@@ -274,9 +311,12 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
             lc = kept
         for p in lc:
             lchain.update_anchors(p, ax, ay, mini_pos)
+        if DBG["flag"] & MG_DBG_LCHAIN:
+            _dump_lchain(gi, lc, ax, ay, qname)
+    stage_time(2)
 
     gcs = None
-    if tab is not None:
+    if tab is not None and qt is None:
         # whole graph-chain stage in one native call
         gcs = gchain.gchain_full_tab(
             gi.g, gi.es, tab, qlen_sum, opt.bw_long, opt.bw_long,
@@ -294,12 +334,20 @@ def map_frag_tail(gi: MinimizerIndex, qlens: List[int], seqs: List[str],
                 gi.g, lc, qlen_sum, opt.bw_long, opt.bw_long, opt.bw_long,
                 opt.max_gc_skip, opt.ref_bonus, chn_pen_gap, chn_pen_skip,
                 opt.mask_level, ay)
+        stage_time(3)
         gcs = gchain.gchain_gen_tab(gi.g, gi.es, n_gc, u, lc, ax, ay, hash_,
                                     opt.min_gc_cnt, opt.min_gc_score,
                                     opt.gdp_max_ed, n_segs, seq_cat)
     gcs.rep_len = rep_len
-    return _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum,
-                            n_mv, cigar_sink)
+    stage_time(4)
+    gcs = _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum,
+                           n_mv, cigar_sink)
+    if qt is not None:
+        stage_time(5)
+        # QM memory line (map-algo.c:485); no kalloc arenas here
+        sys.stderr.write(f"QM\t{qname}\t{qlen_sum}\t"
+                         "cap=0,nCore=0,largest=0\n")
+    return gcs
 
 
 def _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum, n_mv,
@@ -320,6 +368,47 @@ def _map_frag_finish(gi, gcs, opt, qname, n_segs, seq_cat, qlen_sum, n_mv,
             gchain_cigar(gi.g, gi.es, seq_cat, gcs, qname)
             gchain_gen_ds(gi.g, gi.es, seq_cat, gcs)
     return gcs
+
+
+def _dump_seeds(gi, ax, ay, rep_len):
+    """--dbg-seed lines on stderr (map-algo.c:370-375)."""
+    out = [f"RS\t{rep_len}"]
+    for i in range(len(ax)):
+        x, y = int(ax[i]), int(ay[i])
+        gap = 0 if i == 0 else (_i32(y) - _i32(int(ay[i - 1]))) \
+            - (_i32(x) - _i32(int(ax[i - 1])))
+        out.append(f"SD\t{gi.g.seg[x >> 33].name}\t{_i32(x)}\t"
+                   f"{'+-'[(x >> 32) & 1]}\t{_i32(y)}\t{(y >> 32) & 0xFF}"
+                   f"\t{gap}")
+    sys.stderr.write("\n".join(out) + "\n")
+
+
+def _dump_lchain(gi, lc, ax, ay, qname):
+    """--dbg-lchain lines on stdout (mg_print_lchain, format.c:90-119)."""
+    out = []
+    for p in lc:
+        span = (int(ay[p.off]) >> 32) & 0xFF
+        mlen = blen = span
+        for j in range(1, p.cnt):
+            ql_ = _i32(int(ay[p.off + j])) - _i32(int(ay[p.off + j - 1]))
+            pl = _i32(int(ax[p.off + j])) - _i32(int(ax[p.off + j - 1]))
+            blen += max(pl, ql_)
+            mlen += span if (pl > span and ql_ > span) else min(pl, ql_)
+        seg = gi.g.seg[p.v >> 1]
+        row = [f"LC\t{qname}\t{p.qs}\t{p.qe}\t{'+-'[p.v & 1]}\t{seg.name}"
+               f"\t{seg.len}\t{p.rs}\t{p.re}\t{p.score}\t{mlen}\t{blen}"
+               f"\t{p.cnt}\t"]
+        row.append("".join(f"{_i32(int(ay[p.off + j]))},"
+                           for j in range(p.cnt)))
+        row.append("\t")
+        row.append("".join(f"{_i32(int(ax[p.off + j]))},"
+                           for j in range(p.cnt)))
+        row.append("\t")
+        row.append("".join(f"{int(ay[p.off + j]) >> 56},"
+                           for j in range(p.cnt)))
+        out.append("".join(row))
+    if out:
+        sys.stdout.write("\n".join(out) + "\n")
 
 
 def map_one(gi: MinimizerIndex, seq: str, opt: MapOptions,
@@ -844,13 +933,16 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
     frag_mode = len(fns) > 1 or bool(opt.flag & MG_M_FRAG_MODE)
     split = None
-    if front is not None and gwfa_pool is None \
+    # a debug bit keeps every read on the per-read path, where the dumps
+    # are written: no native loop, no split, no native batch, no threads
+    dbg = DBG["flag"]
+    if front is not None and gwfa_pool is None and not dbg \
             and not (opt.flag & _EMIT_BAIL_NOCIG):
         split = getattr(front, "_split_state", None)
         if split is None:
             split = {"share": 0.35, "t_host": None, "t_dev": None}
             front._split_state = split
-    if (gwfa_pool is None and len(fns) == 1
+    if (gwfa_pool is None and not dbg and len(fns) == 1
             and (not frag_mode or front is None)
             and _batch_mode_ok(opt.flag)
             and not (opt.flag & (MG_M_INDEPEND_SEG | MG_M_NO_DIAG))
@@ -869,13 +961,13 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
 
     fps = [BSeqFile(fn) for fn in fns]
     pe_ori = opt.pe_ori
-    split_ok = (front is not None and gwfa_pool is None
+    split_ok = (front is not None and gwfa_pool is None and not dbg
                 and not (opt.flag & (_EMIT_BAIL_NOCIG | MG_M_HEAP_SORT
                                      | MG_M_INDEPEND_SEG | MG_M_NO_DIAG)))
     if not split_ok:
         split = {"share": 0.35, "t_host": None, "t_dev": None}
     host_pool = ThreadPoolExecutor(max_workers=1) if split_ok else None
-    host_batch_ok = (front is None and gwfa_pool is None
+    host_batch_ok = (front is None and gwfa_pool is None and not dbg
                      and _batch_mode_ok(opt.flag)
                      and not (opt.flag & (MG_M_INDEPEND_SEG
                                           | MG_M_NO_DIAG)))
@@ -1094,7 +1186,8 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 res = front._wfa_pool.run(cigar_sink.jobs)
                 for pr in cigar_sink.pending:
                     finalize_read(pr, res)
-            elif front is not None and n_threads > 1 and len(todo) > 1:
+            elif front is not None and n_threads > 1 and len(todo) > 1 \
+                    and not dbg:
                 # the native tails release the GIL, so the per-read path
                 # scales over threads; emission stays in input order
                 with ThreadPoolExecutor(
@@ -1118,10 +1211,15 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                         sink.queue_inject(tickets)
                         done[fi] = compute_frag(fi, *frags[fi], gp=sink)
             else:
-                done = {fi: compute_frag(fi, *frags[fi]) for fi in todo}
+                # each read is written as soon as it is mapped, so what
+                # the stages write to stdout (--dbg-lchain) stays in
+                # step with the records, as in the JAX package
+                done = {}
             for fi, (off, n_seg) in enumerate(frags):
                 if fi in done:
                     emit_frag(off, n_seg, *done[fi])
+                elif batch_txt is None or batch_txt.get(fi) is None:
+                    emit_frag(off, n_seg, *compute_frag(fi, off, n_seg))
                 else:
                     out.write(batch_txt[fi])
     finally:

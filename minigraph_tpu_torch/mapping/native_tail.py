@@ -20,7 +20,7 @@ import ctypes as ct
 
 import numpy as np
 
-from ..options import (MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_HEAP_SORT,
+from ..options import (DBG, MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_HEAP_SORT,
                        MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_RMQ,
                        MG_M_SHOW_UNMAP, MG_M_SPLICE, MG_M_SR,
                        MG_MAX_SHORT_K)
@@ -256,6 +256,10 @@ def map_batch_native(gi, opt, items, n_threads: int,
     n = len(items) if blob is None else blob[0]
     if n == 0:
         return {}
+    if DBG["flag"]:
+        # debug dumps are written on the per-read path: every read bails
+        return dict.fromkeys(range(n) if blob is not None
+                             else [it[0] for it in items])
     is_sr = bool(opt.flag & MG_M_SR)
     is_splice = bool(opt.flag & MG_M_SPLICE)
     is_rmq = bool(opt.flag & MG_M_RMQ)

@@ -15,6 +15,7 @@ from typing import List
 import numpy as np
 
 from ..index.midx import MinimizerIndex
+from ..index.midx_device import sketch_segments_device
 from ..index.sketch import sketch
 from ..options import (MG_M_NO_DIAG, MG_SEED_OCC_SHIFT, MG_SEED_SEG_SHIFT,
                        MG_SEED_TANDEM, MapOptions)
@@ -35,6 +36,27 @@ def collect_minimizers(gi: MinimizerIndex, qlens: List[int], seqs: List[str]):
     total = 0
     for i, (ql, s) in enumerate(zip(qlens, seqs)):
         x, y = sketch(s, gi.w, gi.k, i)
+        y = y + U64((total << 1) & 0xFFFFFFFFFFFFFFFF)
+        xs.append(x)
+        ys.append(y)
+        total += ql
+    if not xs:
+        return np.empty(0, dtype=np.uint64), np.empty(0, dtype=np.uint64)
+    return np.concatenate(xs), np.concatenate(ys)
+
+
+def collect_minimizers_device(gi: MinimizerIndex, qlens: List[int],
+                              seqs: List[str], device):
+    """collect_minimizers with the sketch on `device` (--seed-device):
+    the index builder's chunk-halo sweep (index/midx_device.py), exact
+    for queries of any length.  Equal to collect_minimizers bit for
+    bit."""
+    sk = sketch_segments_device([s.upper() for s in seqs], gi.w, gi.k,
+                                device=device)
+    xs, ys = [], []
+    total = 0
+    for i, ((x, y), ql) in enumerate(zip(sk, qlens)):
+        y = y | (U64(i) << U64(32))
         y = y + U64((total << 1) & 0xFFFFFFFFFFFFFFFF)
         xs.append(x)
         ys.append(y)

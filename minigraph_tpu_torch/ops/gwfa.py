@@ -27,6 +27,7 @@ CUDA kernel (csrc/gwfa.cu, one block a job) for tensors on the card.
 """
 from __future__ import annotations
 
+import time
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -592,17 +593,26 @@ def gwfa_batch_ref(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
 
 def gwfa_batch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
                dcap=256, ccap=2048, tcap=512, fcap=512, wcap=64, degcap=6,
-               hopcap=16, evcap=128, max_steps=256):
+               hopcap=16, evcap=128, max_steps=256, timing=None):
     """GWFA for a batch of bridge jobs: the plain version for CPU
     tensors, the `gwfa` kernel (csrc/gwfa.cu, one block a job) for
     tensors on the card.  Returns the dict of `gwfa_batch_ref`.  Caps
     whose job state passes a block's shared memory (~107 KB at the
-    defaults, 227 KB at most) fail at the launch (RuntimeError)."""
+    defaults, 227 KB at most) fail at the launch (RuntimeError).
+
+    `timing`, a list, receives the time of the launch alone: the pair of
+    CUDA events recorded on the current stream just before and after it
+    on the card, the host milliseconds of the plain version on the CPU.
+    An empty batch launches nothing and appends nothing."""
     caps = dict(dcap=dcap, ccap=ccap, tcap=tcap, fcap=fcap, wcap=wcap,
                 degcap=degcap, hopcap=hopcap, evcap=evcap,
                 max_steps=max_steps)
     if q.device.type == "cpu":
-        return gwfa_batch_ref(gd, q, ql, v0, off0, v1, off1, max_ed, **caps)
+        t0 = time.perf_counter()
+        res = gwfa_batch_ref(gd, q, ql, v0, off0, v1, off1, max_ed, **caps)
+        if timing is not None and q.shape[0]:
+            timing.append((time.perf_counter() - t0) * 1e3)
+        return res
     J, QCAP = q.shape
     jobs = (ql, v0, off0, v1, off1, max_ed)
     if q.dtype != I32 or any(x.shape != (J,) or x.dtype != I32
@@ -626,9 +636,17 @@ def gwfa_batch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
     if J == 0:
         # nothing to launch, so nothing to count
         return {"s": s, "flags": flags, "walk": walk, "n_walk": n_walk}
-    kernels.launch("gwfa", q.contiguous(),
-                   *(x.contiguous() for x in jobs),
-                   *(x.contiguous() for x in gd), J, QCAP,
-                   gd.arc_cnt.shape[0], dcap, ccap, tcap, fcap, wcap, degcap,
-                   hopcap, evcap, max_steps, s, flags, walk, n_walk)
+    args = (q.contiguous(), *(x.contiguous() for x in jobs),
+            *(x.contiguous() for x in gd), J, QCAP, gd.arc_cnt.shape[0],
+            dcap, ccap, tcap, fcap, wcap, degcap, hopcap, evcap, max_steps,
+            s, flags, walk, n_walk)
+    if timing is None:
+        kernels.launch("gwfa", *args)
+    else:
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        e0.record()
+        kernels.launch("gwfa", *args)
+        e1.record()
+        timing.append((e0, e1))
     return {"s": s, "flags": flags, "walk": walk, "n_walk": n_walk}

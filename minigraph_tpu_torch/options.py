@@ -180,3 +180,20 @@ def opt_update(gi, mo: MapOptions) -> None:
         mo.occ_max1 = mo.occ_max1_cap
     if mo.bw_long < mo.bw:
         mo.bw_long = mo.bw
+
+
+# debug flags (mgpriv.h:7-16), set by the command line's --dbg-* and
+# --no-kalloc.  Any bit keeps reads off the native batch and file loops,
+# the whole native tail and the device front: they run the per-read
+# path's decomposed stages, where the dumps are written.
+MG_DBG_NO_KALLOC = 0x1  # allocator flag in the reference; writes nothing
+MG_DBG_QNAME = 0x2
+MG_DBG_SEED = 0x4
+MG_DBG_LCHAIN = 0x8
+MG_DBG_INSERT = 0x10
+MG_DBG_SHORTK = 0x20    # allocator-mode switch in the reference; writes nothing
+MG_DBG_GC1 = 0x40
+MG_DBG_LC_PROF = 0x80
+MG_DBG_MINIWFA = 0x100
+MG_DBG_MWF_SEQ = 0x200
+DBG = {"flag": 0}

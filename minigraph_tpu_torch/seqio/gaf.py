@@ -10,7 +10,8 @@ from typing import List, Optional
 from ..graph.gfa import COMP_TABLE, Graph
 from ..mapping.gchain import GChains
 from ..options import (MG_M_FRAG_MERGE, MG_M_NO_COMP_PATH, MG_M_PRINT_2ND,
-                       MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN)
+                       MG_M_SHOW_UNMAP, MG_M_VERTEX_COOR, MG_M_WRITE_LCHAIN,
+                       MG_M_WRITE_MZ)
 
 
 def _i32(v: int) -> int:
@@ -132,7 +133,7 @@ def write_gaf(g: Graph, gs: Optional[GChains], n_seg: int, qlens: List[int],
             _write_cigar(s, p, rev_sign)
         s.append("\n")
         if flag & MG_M_WRITE_LCHAIN:
-            _write_lchain_lines(s, g, gs, p)
+            _write_lchain_lines(s, g, gs, p, flag)
         out.append("".join(s))
     return "".join(out)
 
@@ -173,8 +174,11 @@ def _write_cigar(s: List[str], p, rev_sign: int) -> None:
                     s.append(chr(COMP_TABLE[ord(ds[j])]))
 
 
-def _write_lchain_lines(s: List[str], g: Graph, gs: GChains, p) -> None:
-    """-S linear-chain lines (format.c:252-289)."""
+def _write_lchain_lines(s: List[str], g: Graph, gs: GChains, p,
+                        flag: int) -> None:
+    """-S linear-chain lines, with --write-mz each chain's minimizer
+    span and the deltas of its target and query positions
+    (format.c:252-289)."""
     for j in range(p.cnt):
         lc = gs.lc[p.off + j]
         s.append(f"*\t{'><'[lc.v & 1]}{g.seg[lc.v >> 1].name}"
@@ -194,4 +198,14 @@ def _write_lchain_lines(s: List[str], g: Graph, gs: GChains, p) -> None:
                      f"\t{_i32(int(gs.ax[lc.off + lc.cnt - 1])) + 1}")
             s.append(f"\t{_i32(int(gs.ay[lc.off])) + 1 - q_span}"
                      f"\t{_i32(int(gs.ay[lc.off + lc.cnt - 1])) + 1}")
+            if flag & MG_M_WRITE_MZ:
+                for arr, sep in ((gs.ax, f"\t{q_span}\t"), (gs.ay, "\t")):
+                    s.append(sep)
+                    last = _i32(int(arr[lc.off])) + 1 - q_span
+                    deltas = []
+                    for i in range(1, lc.cnt):
+                        x = _i32(int(arr[lc.off + i])) + 1 - q_span
+                        deltas.append(str(x - last))
+                        last = x
+                    s.append(",".join(deltas))
         s.append("\n")

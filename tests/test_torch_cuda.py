@@ -931,3 +931,78 @@ def test_gwfa_kernel_high_degree(card, gwfa_graphs):
     assert int(((want["flags"] & 8) != 0).sum()) > 0
     gwfa_check(gwfa_graphs["star"], jobs, 1024, degcap=8, dcap=256,
                evcap=128)
+
+
+def test_gwfa_pool_kernel_time_on_card(card, gwfa_graphs):
+    """The pool's kernel_ms times the launch alone, inside batch_ms (the
+    wrapper call around it): 0 < kernel_ms <= batch_ms."""
+    from minigraph_tpu_torch.align.gwfa_device import DeviceGwfaPool
+    g, es = gwfa_graphs["g"]
+
+    class Index:            # what the pool reads of an index
+        pass
+    gi = Index()
+    gi.g, gi.es = g, es
+    jobs = gwfa_jobs(gwfa_graphs["g"], 21, 1024, 8) \
+        + gwfa_jobs(gwfa_graphs["g"], 22, 256, 8)
+    rows, q = [], b""
+    for qb, v0, e0, v1, e1, med in jobs:
+        rows.append([len(q), len(q) + len(qb), v0, e0, v1, e1, med, 0])
+        q += qb
+    pool = DeviceGwfaPool(gi, device="cuda")
+    n0 = kernels.launches["gwfa"]
+    pool.run(np.asarray(rows, dtype=np.int64), q.decode("latin-1"))
+    assert kernels.launches["gwfa"] - n0 == pool.n_batches == 2
+    assert 0 < pool.kernel_ms <= pool.batch_ms
+
+
+# ---- the chunk-halo sweep (index/midx_device.py) on K1
+
+@pytest.mark.parametrize("k,w", [(19, 10), (17, 11)])
+@pytest.mark.parametrize("B,pad", [(128, 4096), (16, 32768)])
+def test_sketch_kernel_chunk_widths(card, k, w, B, pad):
+    """K1 at the sweep's widths pad + 2w + k + 2 (4137 / 32809 at asm's
+    and lr's (k, w)), no multiple of the kernel's 256-slot tile."""
+    L = pad + 2 * w + k + 2
+    codes, lens = synth_codes(np.random.default_rng(L + B), B, L)
+    c, n = torch.from_numpy(codes), torch.from_numpy(lens)
+    want = sketch_planes_ref(c.to(card), n.to(card), w, k)
+    n0 = kernels.launches["sketch"]
+    got = sketch_planes(c.to(card), n.to(card), w, k)
+    assert kernels.launches["sketch"] == n0 + 1
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_sketch_segments_device_on_card(card):
+    """The sweep on the card equals its plain version bit for bit, one
+    launch a chunk batch; the tandem sequence's planes overflow and it
+    goes whole to the host sketch.  Against the host sketch: the same
+    records, in the same order except for the 36 kb sequence, whose last
+    chunk sits in the 4096 bucket, which the 300 bp sequence opened
+    first: the JAX package's sweep decodes it first too (ROADMAP C)."""
+    from minigraph_tpu_torch.index.midx_device import (
+        DEV_BUCKETS, chunk_jobs, sketch_segments_device)
+    from minigraph_tpu_torch.index.sketch import sketch
+    rng = np.random.default_rng(8)
+    seqs = ["".join(rng.choice(list("ACGTN"), n, p=[.249] * 4 + [.004]))
+            for n in (300, 5000, 40000, 70000, 36000)]
+    seqs.append("ACGT" * 1500)
+    for k, w in ((19, 10), (17, 11)):
+        n0 = kernels.launches["sketch"]
+        got = sketch_segments_device(seqs, w, k, device="cuda")
+        jobs = chunk_jobs(seqs, w, k, DEV_BUCKETS[-1][0])
+        small = sum(len(j[2]) <= DEV_BUCKETS[0][0] + w + k + 1
+                    for j in jobs)
+        assert kernels.launches["sketch"] - n0 \
+            == -(-small // 128) + -(-(len(jobs) - small) // 16)
+        plain = sketch_segments_device(seqs, w, k, device="cpu")
+        for i, (s, (x, y), (px, py)) in enumerate(zip(seqs, got, plain)):
+            hx, hy = sketch(s, w, k, rid=0)
+            assert np.array_equal(x, px) and np.array_equal(y, py)
+            if i != 4:
+                assert np.array_equal(x, hx) and np.array_equal(y, hy)
+            order = np.argsort(y, kind="stable")
+            h_order = np.argsort(hy, kind="stable")
+            assert np.array_equal(y[order], hy[h_order])
+            assert np.array_equal(x[order], hx[h_order])

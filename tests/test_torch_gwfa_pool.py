@@ -104,6 +104,23 @@ def test_pool_matches_jax(files):
         == [getattr(jpool, c) for c in counts]
 
 
+def test_pool_kernel_time_inside_batch_time(files):
+    """kernel_ms times the launch alone (the plain version on the CPU),
+    batch_ms the whole wrapper call around it: 0 < kernel_ms <= batch_ms
+    after each batch, and an empty run adds to neither."""
+    g = read_gfa(files["g"])
+    gi = build_index(g, 15, 10)
+    jobs = bridge_jobs(g, gi.es, np.random.default_rng(45), 40, 8, 1024)
+    pool = DeviceGwfaPool(gi, device="cpu")
+    pool.run(np.empty((0, 8), dtype=np.int64), "")
+    assert (pool.n_batches, pool.kernel_ms, pool.batch_ms) == (0, 0.0, 0.0)
+    for part in (jobs[:3], jobs[3:12]):
+        k0, b0 = pool.kernel_ms, pool.batch_ms
+        pool.run(*rows_of(part))
+        assert 0 < pool.kernel_ms - k0 <= pool.batch_ms - b0
+    assert pool.n_batches >= 2
+
+
 def test_pool_threads_keep_counts(files):
     """The Python loop's reader threads share one pool: under a short
     switch interval, 4 threads x 2 calls keep every count whole."""

@@ -132,7 +132,55 @@ def test_cli_matches_host_path(files):
 
 
 def test_unsupported_options_raise(files):
-    # --cov (MG_M_CAL_COV) is ported; --write-mz is still refused
-    from minigraph_tpu_torch.options import MG_M_WRITE_MZ
+    # --write-mz is ported: spliced chains (no preset of the command line
+    # sets the flag) are the one flag the port refuses
+    from minigraph_tpu_torch.options import MG_M_SPLICE
     with pytest.raises(NotImplementedError):
-        port_gaf(files, None, MG_M_WRITE_MZ)
+        port_gaf(files, None, MG_M_SPLICE)
+
+
+def test_write_mz_matches_jax(files):
+    """--write-mz (MG_M_WRITE_MZ with MG_M_WRITE_LCHAIN) through
+    map_files: the -S lines with each chain's minimizer span and position
+    deltas, the JAX package's bytes.  Its output shape keeps every read in
+    the Python reader loop, on the per-read path (the device front's
+    chains with a front)."""
+    from minigraph_tpu_torch.options import (MG_M_WRITE_LCHAIN,
+                                             MG_M_WRITE_MZ)
+    flag = MG_M_WRITE_MZ | MG_M_WRITE_LCHAIN
+    gfa, fa = files
+    out = io.StringIO()
+    mo = JaxMapOptions()
+    mo.flag |= flag
+    jax_map_files(jax_read_gfa(gfa), [fa], JaxIndexOptions(), mo, out=out,
+                  n_threads=1, device=False)
+    want = out.getvalue()
+    # chain lines with the span and both delta lists: 12 fields
+    mz = [ln for ln in want.splitlines()
+          if ln.startswith("*\t") and ln.count("\t") == 11]
+    assert len(mz) >= 40
+    host, st_host = port_gaf(files, None, flag, loop="native")
+    dev, st = port_gaf(files, "cpu", flag, loop="native")
+    assert host == want and dev == want
+    assert "n_arena" not in st_host and "n_arena" not in st
+    assert st["n_device"] >= 40, st
+
+
+def test_debug_bit_keeps_reads_on_per_read_path(files, monkeypatch):
+    """A debug bit (--no-kalloc's, which writes nothing) keeps every read
+    off the native file loop, the native batch and the device front, as in
+    the JAX package: the bytes stay the host run's."""
+    from minigraph_tpu_torch.options import DBG, MG_DBG_NO_KALLOC
+    want, _ = port_gaf(files, None, loop="native")
+    assert want.count("\n") >= 40
+    monkeypatch.setitem(DBG, "flag", MG_DBG_NO_KALLOC)
+    calls = []
+    monkeypatch.setattr(DeviceFront, "submit",
+                        lambda *a, **k: calls.append("front"))
+    monkeypatch.setattr(mapper, "map_batch_native",
+                        lambda *a, **k: calls.append("batch"))
+    for device in (None, "cpu"):
+        got, st = port_gaf(files, device, loop="native")
+        assert got == want
+        assert "n_arena" not in st and st.get("n_device", 0) == 0, st
+    assert calls == []

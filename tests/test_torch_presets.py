@@ -7,8 +7,9 @@ front's plain PyTorch versions), the JAX package host only.  The JAX
 side runs one host thread, the port two: the bytes do not depend on
 it.  The options ported from the refusal list (graph generation, --call,
 --cov, --gwfa-device, with and without -c) write the JAX CLI's bytes;
-every option the port still refuses exits 1 with a message naming it.
-Tolerance: exact equality."""
+the last ones it refused (--seed-device, --write-mz, --tpu, --no-kalloc,
+the --dbg-* dumps) are held in tests/test_torch_debug.py.  Tolerance:
+exact equality."""
 import contextlib
 import dataclasses
 import io
@@ -215,21 +216,6 @@ def test_ported_option_matches_jax(files, case):
     assert got == want, case
     if "--gwfa-device" in port:
         assert "device GWFA bridges" in err
-
-
-REFUSED = [["--seed-device"], ["--write-mz"], ["--tpu"], ["--no-kalloc"],
-           ["--dbg-seed"], ["--dbg-lchain"], ["--dbg-gc1"], ["--dbg-shortk"],
-           ["--dbg-qname"], ["--dbg-insert"], ["--dbg-lc-prof"],
-           ["--dbg-mwf-long"], ["--dbg-mwf-seq"]]
-
-
-@pytest.mark.parametrize("argv", REFUSED, ids=lambda a: a[0])
-def test_refused_options_exit_1(files, argv):
-    rc, out, err = run(cli.main, ["--device", "none"] + argv
-                       + [files["g"], files["r"]])
-    assert rc == 1 and out == ""
-    assert "[ERROR]" in err and argv[0] in err, err
-    assert "not supported by the port" in err
 
 
 def test_bad_arguments_exit_1(files):
