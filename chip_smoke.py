@@ -130,13 +130,36 @@ Phases, in order; any failure exits non-zero:
    -xasm --write-mz --seed-device on phase 7's whole haplotype as one
    ~5 Mb query (its output shape takes the Python reader loop, so the
    device route): the GAF bytes of --device none without --seed-device,
-   K1 launched once a chunk batch.
+   K1 launched once a chunk batch;
+12. multi-GPU and the fork pool: (a) the v1 map step (ops/pipeline.py
+   make_map_step: the exact sketch, the binary-search collect, K4 at
+   W = 64) at phase 5's shape with mcap 512 and acap 2048, bitwise
+   against the same step on CPU tensors, its reads/s, K4 on its anchors
+   against its plain version; (b) the five steps of parallel/shard.py at
+   mcap = acap = qcap = 512 on 384 of phase 4's reads and 128 exact
+   slices of the reference (some of whose hits in one of two key shards
+   pass acap_shard): world size 1 with NCCL on a 1x1 mesh, each equal to
+   its unsharded step, then two gloo processes on cuda:0, the (data 2,
+   idx 1) mesh equal to the world-size-1 results, the (data 1, idx 2)
+   mesh too except on the reads whose shard binds acap_shard, its idx
+   steps equal to the same steps with CPU tables, and the sweep with a
+   data-2 mesh equal to mesh=None, K1 launched once a chunk batch on
+   each rank; (c) python -m minigraph_tpu_torch.parallel.dist with two
+   processes on the card, the GAF run and the --cov run at once: rank
+   0's bytes equal phase 4's host-only GAF and the single-process --cov
+   graph, rank 1 writes nothing; each rank's front launches and
+   seconds; (d) phase 10's -cxggs -l10k at -t 8 in a fresh process (it
+   forks 8 workers) and in this one (it holds a CUDA context, so it maps
+   here and logs why), the rGFA bytes of phase 10 both times; (e)
+   tools/devprof.py's stage table at --bucket 2048x256 --n 256 on phase
+   4's graph and reads.
 
 After the build it prints ptxas' registers, stack frame and spills of
 the sketch, chunked-chain, ring-chain, banded-score, backtrack,
 exact-WFA and GWFA kernels.  Prints the kernels' JSON line (K1 twice:
 "sketch" with the main path's launches, "sketch_seed_device" at the
-sweep's width with run 11 (d)'s),
+sweep's width with run 11 (d)'s; K4 twice: "chain_ring" at phase 5's
+W = 32, "chain_ring_v1" at the v1 step's W = 64 with run 12 (a)'s),
 then the card's name and power limit,
 and last {"ok": true, "device": {...}}.  Exits non-zero without a CUDA
 device.
@@ -503,11 +526,10 @@ def float_err(got, ref):
         if got.numel() else 0.0
 
 
-def check_ring_chain(res, reps):
+def check_ring_chain(res, reps, W=STEP_KW["window"], T=256):
     """K4 against its plain version on the step's anchors."""
     from minigraph_tpu_torch.ops.chain import (lchain_dp_planes,
                                                lchain_dp_tiled_ref)
-    W, T = STEP_KW["window"], 256
     planes = res[:5]
     got = lchain_dp_planes(*planes, window=W, tile=T)
     t0 = time.perf_counter()
@@ -1660,6 +1682,404 @@ def seed_device_phase(ref, gfa, work, kernels, ggen_out):
     return k1[DB[-1][0]], lc_d
 
 
+# phase 12's shapes: (a) phase 5's batch, (b) caps at which a key shard
+# of two binds acap_shard = max(acap // 2, 256)
+V1_CAPS = dict(mcap=512, acap=2048, window=64)
+SHARD_CAPS = dict(mcap=512, acap=512, qcap=512)
+SHARD_STEPS = ("v1", "v2", "v2_idx", "hash_idx", "v1_idx")
+
+
+def v1_phase(gi, reads, kernels):
+    """Phase 12 (a): the v1 map step (ops/pipeline.py make_map_step) at
+    phase 5's shape, on the card against the same step on CPU tensors;
+    K4 at W = 64 on its anchors against its plain version."""
+    from minigraph_tpu_torch.ops import u32, u64
+    from minigraph_tpu_torch.ops.pipeline import (DeviceIndex,
+                                                  collect_anchors_device,
+                                                  make_map_step)
+    from minigraph_tpu_torch.ops.sketch import encode_batch
+    from minigraph_tpu_torch.ops.sketch_v2 import sketch_device_v2
+    c = V1_CAPS
+    codes_h, lens_h = encode_batch(reads, pad_to=STEP_PAD)
+    codes, lens = torch.from_numpy(codes_h).cuda(), \
+        torch.from_numpy(lens_h).cuda()
+    dix = DeviceIndex.from_host(gi, "cuda")
+    step = make_map_step(dix, c["mcap"], c["acap"], window=c["window"])
+    step(codes, lens)                    # first call: allocations
+    torch.cuda.synchronize()
+    kernels.reset_launches()
+    out = step(codes, lens)
+    torch.cuda.synchronize()
+    launches = dict(kernels.launches)
+    if launches["chain_ring"] != 1:
+        raise AssertionError(f"phase 12 (a): launches {launches}")
+    rate = step_rate(step, codes, lens)
+    t0 = time.perf_counter()
+    ref = make_map_step(DeviceIndex.from_host(gi, "cpu"), c["mcap"],
+                        c["acap"], window=c["window"])(codes_h, lens_h)
+    plain_s = time.perf_counter() - t0
+    for key, v in ref.items():
+        if not torch.equal(v, out[key].cpu()):
+            raise AssertionError(f"phase 12 (a): {key} card != CPU")
+    n_a = out["n_anchors"].double()
+    log(f"phase 12 (a) v1 step (B={len(reads)}, pad {STEP_PAD}, mcap "
+        f"{c['mcap']}, acap {c['acap']}, W={c['window']}): card == CPU "
+        f"bitwise on f, p, best, best_anchor, n_anchors; n_a mean "
+        f"{n_a.mean():.1f} max {int(n_a.max())}; {rate:.1f} reads/s on "
+        f"the card (host clock, synchronised, mean of 3), the plain step "
+        f"on the CPU {plain_s:.2f} s; launches {launches}")
+    mx, my, n_mv = sketch_device_v2(codes, lens, gi.w, gi.k, c["mcap"])
+    ax, ay, n_a = collect_anchors_device(
+        dix.keys, dix.key_start, dix.key_cnt, dix.pos, dix.seg_len, mx, my,
+        n_mv, 50, 16, c["acap"])
+    planes = (u64.srl(ax, 32), ax & u32.U32MAX, u64.srl(ay, 32),
+              ay & u32.U32MAX, n_a)
+    k4 = check_ring_chain(planes, reps=20, W=c["window"])
+    return launches, k4
+
+
+def shard_inputs(ref, reads, work):
+    """Phase 12 (b)'s batch: 384 of phase 4's short reads and 128 exact
+    slices of the reference, some of whose hits in one of two key shards
+    pass acap_shard (the CPU test's cap-binding shape)."""
+    from minigraph_tpu_torch.ops.sketch import encode_batch
+    rng = np.random.default_rng(120)
+    pos = rng.integers(0, len(ref) - 1900, 128)
+    codes, lens = encode_batch(list(reads[:384])
+                               + [ref[p:p + 1900] for p in pos],
+                               pad_to=STEP_PAD)
+    np.savez(work / "shard_batch.npz", codes=codes, lens=lens)
+    return codes, lens
+
+
+def shard_tables(gi, device):
+    from minigraph_tpu_torch.ops.anchors import JoinIndex
+    from minigraph_tpu_torch.ops.pipeline import DeviceIndex
+    return (DeviceIndex.from_host(gi, device),
+            JoinIndex.from_host(gi, 16, device))
+
+
+def sharded_steps(mesh, gi, dix, ji, device, names=SHARD_STEPS):
+    from minigraph_tpu_torch.parallel import shard
+    c = SHARD_CAPS
+    make = {
+        "v1": lambda: shard.make_sharded_map_step(mesh, dix, c["mcap"],
+                                                  c["acap"]),
+        "v2": lambda: shard.make_sharded_map_step_v2(
+            mesh, ji, gi.w, gi.k, acap=c["acap"], qcap=c["qcap"],
+            window=16),
+        "v2_idx": lambda: shard.make_index_sharded_map_step_v2(
+            mesh, ji, gi.w, gi.k, acap=c["acap"], qcap=c["qcap"]),
+        "hash_idx": lambda: shard.make_hash_sharded_map_step(
+            mesh, gi, acap=c["acap"], qcap=c["qcap"], device=device),
+        "v1_idx": lambda: shard.make_index_sharded_map_step(
+            mesh, dix, c["mcap"], c["acap"])}
+    return {n: make[n]() for n in names}
+
+
+def run_steps(steps, codes, lens):
+    """{step/key: numpy array} of each step's global outputs."""
+    out = {}
+    for name, step in steps.items():
+        res = step(codes, lens)
+        if not isinstance(res, dict):
+            res = {"best": res[0], "n_anchors": res[1]}
+        for key, v in res.items():
+            out[f"{name}/{key}"] = v.cpu().numpy()
+    return out
+
+
+def flat_records(res):
+    return np.concatenate([np.array([len(x)], np.uint64) for x, _ in res]
+                          + [a for xy in res for a in xy])
+
+
+def shard_worker(rank, port, work):
+    """Phase 12 (b) on one of two gloo ranks that share cuda:0: the five
+    steps on (data 2, idx 1) and (data 1, idx 2) meshes, the idx steps
+    of the second also with CPU tables (the plain versions), and the
+    sweep (index/midx_device.py) with a data-2 mesh."""
+    import torch.distributed as dist
+
+    from minigraph_tpu_torch import kernels
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.index.midx_device import sketch_segments_device
+    from minigraph_tpu_torch.options import IndexOptions, MapOptions
+    from minigraph_tpu_torch.parallel.shard import make_mesh
+    work = Path(work)
+    dist.init_process_group("gloo", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=2, rank=rank)
+    try:
+        t0 = time.perf_counter()
+        io_, mo = IndexOptions(), MapOptions()
+        g = read_gfa(str(work / "mhc5m.gfa"))
+        gi = build_index(g, io_.k, io_.w, mo)
+        z = np.load(work / "shard_batch.npz")
+        codes, lens = z["codes"], z["lens"]
+        dix, ji = shard_tables(gi, "cuda")
+        dix_h, ji_h = shard_tables(gi, "cpu")
+        out = {}
+        for d, i in ((2, 1), (1, 2)):
+            mesh = make_mesh(2, idx_shards=i, device="cuda")
+            res = run_steps(sharded_steps(mesh, gi, dix, ji, "cuda"),
+                            codes, lens)
+            out.update({f"{d}x{i}/{k}": v for k, v in res.items()})
+            if i == 2:
+                res = run_steps(sharded_steps(
+                    mesh, gi, dix_h, ji_h, "cpu",
+                    ("v2_idx", "hash_idx", "v1_idx")), codes, lens)
+                out.update({f"cpu/{k}": v for k, v in res.items()})
+            else:
+                kernels.reset_launches()
+                recs = sketch_segments_device(
+                    [s.seq for s in g.seg if s.seq], gi.w, gi.k,
+                    device="cuda", mesh=mesh)
+                torch.cuda.synchronize()
+                out["sweep"] = flat_records(recs)
+                out["sweep_launches"] = np.array(kernels.launches["sketch"])
+        out["seconds"] = np.array(time.perf_counter() - t0)
+        np.savez(work / f"shard_r{rank}.npz", **out)
+    finally:
+        dist.destroy_process_group()
+
+
+def free_port():
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def shard_phase(ref, gi, hash_tables, reads, work, kernels):
+    """Phase 12 (b): the sharded steps (parallel/shard.py) on the card:
+    world size 1 with NCCL on a 1x1 mesh against the unsharded steps,
+    then two gloo processes on cuda:0."""
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx_device import sketch_segments_device
+    from minigraph_tpu_torch.ops import u64
+    from minigraph_tpu_torch.ops.pipeline import (collect_anchors_device,
+                                                  make_map_step,
+                                                  make_map_step_v2)
+    from minigraph_tpu_torch.ops.sketch_v2 import sketch_device_v2
+    from minigraph_tpu_torch.parallel.shard import (make_mesh,
+                                                    shard_index_by_key)
+    c = SHARD_CAPS
+    codes_h, lens_h = shard_inputs(ref, reads, work)
+    codes, lens = torch.from_numpy(codes_h), torch.from_numpy(lens_h)
+    dix, ji = shard_tables(gi, "cuda")
+    t0 = time.perf_counter()
+    # the unsharded steps
+    hash16 = dataclasses.replace(hash_tables, occ_cap=16)
+    v2 = make_map_step_v2(ji, gi.w, gi.k, acap=c["acap"], qcap=c["qcap"],
+                          window=16)(codes, lens)
+    want = {f"v1/{k}": v for k, v in make_map_step(
+        dix, c["mcap"], c["acap"])(codes, lens).items()}
+    want.update({f"v2/{k}": v for k, v in v2.items()})
+    want.update({"v2_idx/best": v2["best"],
+                 "v2_idx/n_anchors": v2["n_anchors"]})
+    hs = make_map_step_v2(hash16, gi.w, gi.k, acap=c["acap"],
+                          qcap=c["qcap"], window=16)(codes, lens)
+    want.update({"hash_idx/best": hs["best"],
+                 "hash_idx/n_anchors": hs["n_anchors"]})
+    v1w = make_map_step(dix, c["mcap"], c["acap"], window=32)(codes, lens)
+    want.update({"v1_idx/best": v1w["best"],
+                 "v1_idx/n_anchors": v1w["n_anchors"]})
+    want = {k: v.cpu().numpy() for k, v in want.items()}
+    # world size 1, NCCL, 1x1 mesh
+    dist.init_process_group("nccl",
+                            init_method=f"tcp://127.0.0.1:{free_port()}",
+                            world_size=1, rank=0)
+    try:
+        kernels.reset_launches()
+        one = run_steps(sharded_steps(make_mesh(1, device="cuda"), gi, dix,
+                                      ji, "cuda"), codes, lens)
+        torch.cuda.synchronize()
+        lc1 = dict(kernels.launches)
+    finally:
+        dist.destroy_process_group()
+    if set(one) != set(want):
+        raise AssertionError(f"phase 12 (b): outputs {sorted(one)}")
+    for key, v in want.items():
+        if not np.array_equal(v, one[key]):
+            raise AssertionError(f"phase 12 (b) NCCL 1x1: {key} differs "
+                                 f"from the unsharded step")
+    t1 = time.perf_counter()
+    log(f"phase 12 (b) world size 1, NCCL, 1x1 mesh: the five sharded "
+        f"steps equal their unsharded steps ({len(want)} arrays, "
+        f"{t1 - t0:.1f} s with the unsharded runs); launches {lc1}")
+    # which reads pass acap_shard in a shard of two (v1's collect)
+    sh = shard_index_by_key(u64.to_numpy(dix.keys),
+                            dix.key_start.cpu().numpy(),
+                            dix.key_cnt.cpu().numpy(),
+                            u64.to_numpy(dix.pos), 2)
+    mx, my, n_mv = sketch_device_v2(codes.cuda(), lens.cuda(), gi.w, gi.k,
+                                    c["mcap"])
+    n_tot = [collect_anchors_device(
+        u64.from_numpy(sh[0][s], "cuda"),
+        torch.from_numpy(sh[1][s]).cuda(), torch.from_numpy(sh[2][s]).cuda(),
+        u64.from_numpy(sh[3][s], "cuda"), dix.seg_len, mx, my, n_mv, 50, 16,
+        1 << 14)[2].cpu().numpy() for s in range(2)]
+    binds = np.maximum(*n_tot) > max(c["acap"] // 2, 256)
+    if not binds.any():
+        raise AssertionError("phase 12 (b): no read binds acap_shard")
+    # world size 2, gloo, both ranks on cuda:0
+    seqs = [s.seq for s in read_gfa(str(work / "mhc5m.gfa")).seg if s.seq]
+    single = flat_records(sketch_segments_device(seqs, gi.w, gi.k,
+                                                 device="cuda"))
+    n_batches = sweep_launches(seqs, gi.w, gi.k)[0]
+    t2 = time.perf_counter()
+    tmp.start_processes(shard_worker, args=(free_port(), str(work)),
+                        nprocs=2, join=True, start_method="spawn")
+    t3 = time.perf_counter()
+    ranks = [dict(np.load(work / f"shard_r{r}.npz")) for r in range(2)]
+    for r, res in enumerate(ranks):
+        for name in SHARD_STEPS:
+            for key in (k for k in want if k.startswith(name + "/")):
+                got21, got12 = res[f"2x1/{key}"], res[f"1x2/{key}"]
+                if not np.array_equal(got21, one[key]):
+                    raise AssertionError(f"phase 12 (b) rank {r} 2x1: "
+                                         f"{key} differs")
+                if name.endswith("_idx"):
+                    if not np.array_equal(got12, res[f"cpu/{key}"]):
+                        raise AssertionError(f"phase 12 (b) rank {r} 1x2: "
+                                             f"{key} card != CPU")
+                    same = got12[~binds] == one[key][~binds]
+                else:
+                    same = got12 == one[key]
+                if not np.all(same):
+                    raise AssertionError(f"phase 12 (b) rank {r} 1x2: "
+                                         f"{key} differs")
+        if not np.array_equal(res["sweep"], single):
+            raise AssertionError(f"phase 12 (b) rank {r}: the data-2 sweep "
+                                 f"differs from mesh=None")
+        if int(res["sweep_launches"]) != n_batches:
+            raise AssertionError(f"phase 12 (b) rank {r}: "
+                                 f"{res['sweep_launches']} K1 launches for "
+                                 f"{n_batches} sweep batches")
+    n_diff = int(sum((ranks[0][f"1x2/{n}/n_anchors"]
+                      != one[f"{n}/n_anchors"]).sum()
+                     for n in ("v2_idx", "hash_idx", "v1_idx")))
+    log(f"phase 12 (b) world size 2, gloo, two processes on cuda:0 "
+        f"({t3 - t2:.1f} s, rank 0 {float(ranks[0]['seconds']):.1f} s of "
+        f"it): the (data 2, idx 1) mesh equals the world-size-1 results, "
+        f"the (data 1, idx 2) mesh too except where a key shard binds "
+        f"acap_shard ({int(binds.sum())} of {len(binds)} reads; {n_diff} "
+        f"idx-step counts differ there), and its idx steps equal the same "
+        f"steps on CPU tables; the sweep with a data-2 mesh gives the "
+        f"records of mesh=None on all {len(seqs)} segments, "
+        f"{n_batches} chunk batches, K1 launched {n_batches} times on each "
+        f"rank on half the rows")
+
+
+def dist_phase(gfa, reads_fa, host_gaf, work):
+    """Phase 12 (c): parallel/dist.py with two processes on the card, the
+    GAF and the --cov runs at once, against the single-process bytes."""
+    from minigraph_tpu_torch import cli
+
+    def start(extra):
+        port = free_port()
+        return [subprocess.Popen(
+            [sys.executable, "-m", "minigraph_tpu_torch.parallel.dist",
+             "--coordinator", f"127.0.0.1:{port}", "--num-processes", "2",
+             "--process-id", str(r), "--device", "cuda"] + extra
+            + [gfa, reads_fa], stdout=subprocess.PIPE,
+            stderr=subprocess.PIPE, text=True) for r in range(2)]
+
+    t0 = time.perf_counter()
+    runs = {"gaf": start([]), "cov": start(["--cov"])}
+    res = {}
+    try:
+        for name, procs in runs.items():
+            res[name] = [p.communicate(timeout=600) for p in procs]
+            for r, p in enumerate(procs):
+                if p.returncode:
+                    raise AssertionError(f"phase 12 (c) {name} rank {r}: "
+                                         f"exit {p.returncode}\n"
+                                         f"{res[name][r][1][-3000:]}")
+    finally:
+        for procs in runs.values():
+            for p in procs:
+                if p.poll() is None:
+                    p.kill()
+    wall = time.perf_counter() - t0
+    buf = io.StringIO()
+    import contextlib
+    with contextlib.redirect_stdout(buf):
+        rc = cli.main(["--device", "none", "--cov", gfa, reads_fa])
+    if rc:
+        raise AssertionError(f"phase 12 (c): single-process --cov exit {rc}")
+    for name, want in (("gaf", host_gaf), ("cov", buf.getvalue())):
+        (out0, _), (out1, _) = res[name]
+        if out0 != want:
+            raise AssertionError(f"phase 12 (c) {name}: rank 0 differs at "
+                                 f"line {first_diff(out0, want)}")
+        if out1:
+            raise AssertionError(f"phase 12 (c) {name}: rank 1 wrote "
+                                 f"{len(out1)} bytes")
+    lines = [ln.split("] ", 1)[-1] for name in res for _, err in res[name]
+             for ln in err.splitlines()
+             if "map_files_distributed" in ln]
+    log(f"phase 12 (c) parallel.dist, 2 processes on one card, --device "
+        f"cuda, the GAF and the --cov runs at once ({wall:.1f} s wall): "
+        f"rank 0's GAF equals phase 4's host-only bytes "
+        f"({host_gaf.count(chr(10))} lines) and its --cov graph the "
+        f"single-process bytes ({len(buf.getvalue())} bytes); rank 1 wrote "
+        f"nothing")
+    for ln in lines:
+        log(f"phase 12 (c)   {ln}")
+
+
+def fork_phase(gfa, samples, ggen_out, t_ggs):
+    """Phase 12 (d): phase 10's -cxggs -l10k at -t 8 in a process with no
+    CUDA context (it forks), then in this one (it does not)."""
+    import contextlib
+
+    from minigraph_tpu_torch import cli
+    want = open(ggen_out).read()
+    out = str(Path(ggen_out).with_suffix(".fork.gfa"))
+    argv = ["-cxggs", "-l10k", "-t8", "-o", out, gfa, samples[0], samples[1]]
+    t0 = time.perf_counter()
+    r = subprocess.run([sys.executable, "-m", "minigraph_tpu_torch"] + argv,
+                       capture_output=True, text=True, timeout=600)
+    t_fork = time.perf_counter() - t0
+    if r.returncode or open(out).read() != want:
+        raise AssertionError(f"phase 12 (d): forked run exit {r.returncode}"
+                             f", rGFA equal: {open(out).read() == want}\n"
+                             f"{r.stderr[-2000:]}")
+    if "no fork pool" in r.stderr:
+        raise AssertionError("phase 12 (d): the fresh process did not fork")
+    err = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stderr(err):
+        rc = cli.main(argv)
+    t_here = time.perf_counter() - t0
+    lines = [ln for ln in err.getvalue().splitlines() if "no fork pool" in ln]
+    if rc or open(out).read() != want or not lines:
+        raise AssertionError(f"phase 12 (d): in-process exit {rc}, "
+                             f"{len(lines)} log lines")
+    log(f"phase 12 (d) -cxggs -l10k -t8: forked (a fresh process, 8 "
+        f"workers) {t_fork:.1f} s with the interpreter's start, rGFA bytes "
+        f"equal to phase 10's ({t_ggs:.1f} s in this process); in this "
+        f"process, which holds a CUDA context, {t_here:.1f} s, the same "
+        f"bytes; log: {lines[0].split('] ', 1)[-1]}")
+
+
+def devprof_phase(gfa, reads_fa):
+    """Phase 12 (e): tools/devprof.py on phase 4's graph and reads."""
+    from minigraph_tpu_torch.tools import devprof
+    args = ["--bucket", "2048x256", "--n", "256", "--gfa", gfa, "--reads",
+            reads_fa]
+    r = devprof.profile(devprof.parse_args(args))
+    log(f"phase 12 (e) devprof {' '.join(args)}:")
+    for ln in devprof.report(r).splitlines():
+        log("  " + ln)
+    return r
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -1940,6 +2360,16 @@ def main() -> int:
     # generation and one whole haplotype with the seed stage on the card
     k1_sd, sd_launches = seed_device_phase(ref, gfa, work, kernels, ggen_out)
 
+    # ---- 12. multi-GPU and the fork pool: (a) the v1 step, (b) the
+    # sharded steps on NCCL and gloo, (c) distributed mapping, (d) the
+    # fork pool, (e) devprof
+    short_seqs = [s_ for _, s_ in short]
+    v1_launches, k4_v1 = v1_phase(gi, short_seqs[:STEP_B], kernels)
+    shard_phase(ref, gi, hash_tables, short_seqs, work, kernels)
+    dist_phase(gfa, reads_fa, host_gaf, work)
+    fork_phase(gfa, *ggen_out)
+    devprof_phase(gfa, reads_fa)
+
     entries = [
         dict(name="sketch", route="cuda",
              source="minigraph_tpu_torch/csrc/sketch.cu",
@@ -1992,6 +2422,12 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/sketch.cu",
              replaces="minigraph_tpu/ops/sketch_pallas.py:44",
              launches=sd_launches["sketch"], library_ms=None, **k1_sd),
+        # K4 again, as the v1 step runs it: W = 64 on its (512, 2048)
+        # anchors, launches of run 12 (a)
+        dict(name="chain_ring_v1", route="cuda",
+             source="minigraph_tpu_torch/csrc/chain_ring.cu",
+             replaces="minigraph_tpu/ops/chain_pallas.py:41",
+             launches=v1_launches["chain_ring"], **k4_v1),
     ]
     print(json.dumps({"kernels": entries}))
     print(smi)

@@ -140,7 +140,10 @@ def _split_optional(argv: List[str]) -> List[str]:
     return out
 
 
-def main(argv: Optional[List[str]] = None) -> int:
+def main(argv: Optional[List[str]] = None, map_fn=None) -> int:
+    """The command line.  `map_fn` maps the reads (default
+    mapping/mapper.py map_files; parallel/dist.py passes its
+    distributed version, which takes the same arguments)."""
     argv = list(sys.argv[1:] if argv is None else argv)
     io_, mo, go = IndexOptions(), MapOptions(), GGOptions()
     try:
@@ -310,12 +313,13 @@ def main(argv: Optional[List[str]] = None) -> int:
     mlog("main", f'loaded the graph from "{args[0]}"')
     if go.algo == 0 and not (go.flag & MG_G_CALL):
         pool = pool_dev if gwfa_device else None
-        ret = map_files(g, args[1:], io_, mo, out=out, n_threads=n_threads,
-                        device=device, gwfa_device=pool)
+        ret = (map_fn or map_files)(
+            g, args[1:], io_, mo, out=out, n_threads=n_threads,
+            device=device, gwfa_device=pool)
     else:
         if go.flag & MG_G_CALL:
             sort_ref_arc(g)
-        ret = ggen(g, args[1:], io_, mo, go, out=out)
+        ret = ggen(g, args[1:], io_, mo, go, out=out, n_threads=n_threads)
     if (go.algo != 0 or (mo.flag & MG_M_CAL_COV)) \
             and not (go.flag & MG_G_CALL):
         write_gfa(g, out)

@@ -25,7 +25,8 @@ from typing import List, Tuple
 import numpy as np
 import torch
 
-from ..ops.sketch import META_Q_BITS, encode_batch, sketch_planes
+from ..ops.sketch import META_Q_BITS, encode_batch
+from ..ops.sketch import sketch_planes as _sketch_planes
 from .sketch import sketch as host_sketch
 
 # (chunk payload length, batch) buckets of the sweep
@@ -58,12 +59,21 @@ def chunk_jobs(seqs: List[str], w: int, k: int, max_pay: int):
 
 
 def sketch_segments_device(seqs: List[str], w: int, k: int,
-                           buckets=DEV_BUCKETS, device="cuda"):
+                           buckets=DEV_BUCKETS, device="cuda", mesh=None):
     """Sketch many sequences on `device`; returns per-sequence (x, y)
     uint64 record arrays equal to the host sketch's with rid 0 (callers
     rebase).  Each batch is padded with empty rows to its bucket's batch
-    size and width pad_len + halo + w + 1."""
+    size and width pad_len + halo + w + 1.
+
+    With `mesh` (parallel/shard.py make_mesh; every rank of the process
+    group calls this with the same sequences), the chunk batches are
+    split data-parallel over its "data" axis, the layout for sketching
+    one chromosome-scale sequence on several devices: each data rank
+    sketches its contiguous block of every batch's rows, the planes are
+    all-gathered over "data", and every rank decodes the same records as
+    without a mesh.  The batch sizes must divide over the data ranks."""
     dev = _device(device)
+    sketch = sketch_planes if mesh is None else _mesh_sketch(mesh)
     halo = w + k + 1
     jobs = chunk_jobs(seqs, w, k, buckets[-1][0])
     out_x: List[List[np.ndarray]] = [[] for _ in seqs]
@@ -88,12 +98,12 @@ def sketch_segments_device(seqs: List[str], w: int, k: int,
             texts = [jobs[j][2] for j in chunk_ids]
             texts += [""] * (bsz - len(texts))
             codes, lens = encode_batch(texts, pad_to=width)
-            sp = sketch_planes(torch.from_numpy(codes).to(dev),
-                               torch.from_numpy(lens).to(dev), w, k)
+            planes, ovf = sketch(torch.from_numpy(codes).to(dev),
+                                 torch.from_numpy(lens).to(dev), w, k)
             # one copy to the host a batch; the planes hold u32 values
-            planes = torch.stack(sp[:6]).cpu().numpy().astype(np.uint32)
-            hh, hl, meta, thh, thl, tmeta = planes
-            ovf = sp.overflow.cpu().numpy()
+            hh, hl, meta, thh, thl, tmeta = \
+                planes.cpu().numpy().astype(np.uint32)
+            ovf = ovf.cpu().numpy()
             for bi, j in enumerate(chunk_ids):
                 si, pay_a, text, ctx_off, pay_len, is_last = jobs[j]
                 if ovf[bi]:
@@ -116,6 +126,33 @@ def sketch_segments_device(seqs: List[str], w: int, k: int,
         else:
             res.append((np.empty(0, np.uint64), np.empty(0, np.uint64)))
     return res
+
+
+def sketch_planes(codes, lens, w, k):
+    """The six planes of one batch stacked (6, B, L + 1), and overflow."""
+    sp = _sketch_planes(codes, lens, w, k)
+    return torch.stack(sp[:6]), sp.overflow
+
+
+def _mesh_sketch(mesh):
+    """sketch_planes on this data rank's rows of the batch, the planes
+    then all-gathered over "data" in row order."""
+    from ..parallel.shard import all_gather
+    n_data, d = mesh.size(0), mesh.get_local_rank("data")
+    group = mesh.get_group("data")
+
+    def run(codes, lens, w, k):
+        B = codes.shape[0]
+        if B % n_data:
+            raise ValueError(f"sweep batch of {B} rows does not split over "
+                             f"{n_data} data ranks")
+        b = B // n_data
+        planes, ovf = sketch_planes(codes[d * b:(d + 1) * b],
+                                    lens[d * b:(d + 1) * b], w, k)
+        return (torch.cat(all_gather(planes, group), 1),
+                torch.cat(all_gather(ovf, group), 0))
+
+    return run
 
 
 def _decode_chunk(hh, hl, meta, thh, thl, tmeta, ctx_off, pay_a, pay_len,

@@ -45,6 +45,7 @@ from __future__ import annotations
 
 import copy
 import ctypes as ct
+import os
 import sys
 import threading
 import time
@@ -71,6 +72,7 @@ from ..seqio.gaf import write_gaf
 from ..utils.hashes import kh_hash_str, kh_hash_uint32
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
+from ..utils.syslog import mlog
 from . import gchain, lchain
 from .lchain import _i32
 from .filters import apply_chain_filters
@@ -906,6 +908,83 @@ def _update_split(split, h_wall, h_cpu, h_n):
     split["share"] = share
 
 
+# --- the fork pool (kt_for's analog; the index shared copy-on-write) ---
+_POOL_CTX = {}
+
+
+def _pool_worker_map(item):
+    off, qname, seqs = item
+    gi, opt = _POOL_CTX["gi"], _POOL_CTX["opt"]
+    qlens = [len(s) for s in seqs]
+    return off, map_frag(gi, qlens, seqs, opt, qname,
+                         fast_emit=_POOL_CTX["fast_emit"])
+
+
+def fork_refused(gwfa_pool=None) -> Optional[str]:
+    """Why this process may not fork its mapping workers, or None.  A
+    CUDA context does not survive a fork, so the pool runs only where
+    this process holds none and the workers' route touches no card: not
+    with --seed-device or the GWFA pool on the card."""
+    if torch.cuda.is_initialized():
+        return "this process holds a CUDA context"
+    if SEED_DEVICE["on"] and torch.device(SEED_DEVICE["device"]).type \
+            == "cuda":
+        return "--seed-device sketches on the card"
+    if gwfa_pool is not None and gwfa_pool.device.type == "cuda":
+        return "the GWFA pool runs on the card"
+    return None
+
+
+def _map_fragments_parallel(gi, opt, items, n_threads, fast_emit=True):
+    """Map fragments across a fork pool; results in input order.
+
+    items: list of (off, qname, [seqs]).  The reads are independent and
+    their order is restored, so the results equal the sequential path's
+    (kt_for, kthread.c:30-52).  fast_emit as the sequential caller maps
+    (graph generation reads the chains, not the GAF text: False).
+    Callers check fork_refused() first."""
+    import multiprocessing as mp
+    _POOL_CTX.update(gi=gi, opt=opt, fast_emit=fast_emit)
+    try:
+        with mp.get_context("fork").Pool(n_threads) as pool:
+            results = pool.map(_pool_worker_map, items,
+                               chunksize=max(1, len(items) // (n_threads * 4)))
+    finally:
+        _POOL_CTX.clear()
+    return [gcs for _, gcs in sorted(results, key=lambda x: x[0])]
+
+
+def flip_pair(batch, off, pe_ori: int) -> None:
+    """Pair orientation (gmap.c:38-43): reverse-complement the mates of
+    the pair at batch[off] as pe_ori asks."""
+    if pe_ori >> 1 & 1:
+        batch[off].seq = revcomp(batch[off].seq)
+    if pe_ori & 1:
+        batch[off + 1].seq = revcomp(batch[off + 1].seq)
+
+
+def frag_records(gi, opt, batch, off, n_seg, qlens, gcs_list, cov) -> str:
+    """The GAF text of one mapped fragment (its segments batch[off],
+    ...; gcs_list one GChains for the fragment or one a segment), or
+    with `cov` = (c_seg, c_link) its coverage added there and ""."""
+    def one(gcs, n, ql, name):
+        if cov is not None:
+            cov_map(gi.g, gcs, opt.min_cov_mapq, opt.min_cov_blen, *cov,
+                    name)
+            return ""
+        return write_gaf(gi.g, gcs, n, ql, name, opt.flag)
+
+    if (opt.flag & MG_M_FRAG_MODE) and (opt.flag & MG_M_FRAG_MERGE):
+        return one(gcs_list[0], n_seg, qlens, batch[off].name)
+    parts = []
+    for k in range(n_seg):
+        t = batch[off + k]
+        gck = gcs_list[k] if len(gcs_list) > 1 else \
+            (gcs_list[0] if k == 0 else None)
+        parts.append(one(gck, 1, [t.l_seq], t.name))
+    return "".join(parts)
+
+
 def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                    n_threads: int = 1, front=None, stats=None,
                    gwfa_pool=None, cov=None) -> None:
@@ -1049,11 +1128,13 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
         return batch, frags, handle, front_idx, host_fut
 
     def flip(batch, off):
-        # pair orientation (gmap.c:38-43)
-        if pe_ori >> 1 & 1:
-            batch[off].seq = revcomp(batch[off].seq)
-        if pe_ori & 1:
-            batch[off + 1].seq = revcomp(batch[off + 1].seq)
+        flip_pair(batch, off, pe_ori)
+
+    # the fork pool's workers (the JAX package's eff_threads): none with
+    # a front, whose batches replace it, or where the native batch runs
+    pool_threads = 1 if front is not None or host_batch_ok \
+        else min(n_threads, os.cpu_count() or 1)
+    fork_logged = False
 
     try:
         cur = _read_prep()
@@ -1064,10 +1145,33 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             t_dev0 = time.perf_counter()
             if handle is not None:
                 front_res = dict(zip(front_idx, front.gather(handle)))
+            # the fork pool where the JAX package forks one (no front, no
+            # native batch, several threads, not -D's independent
+            # segments) and no card is in the way (fork_refused); its
+            # results come before any other route's
+            pre = None
+            flips_done = False
+            if pool_threads > 1 and not (opt.flag & MG_M_INDEPEND_SEG):
+                refused = fork_refused(gwfa_pool)
+                if refused is None:
+                    items = []
+                    for off, n_seg in frags:
+                        if n_seg == 2:
+                            flip(batch, off)
+                        items.append((off, batch[off].name,
+                                      [batch[off + k].seq
+                                       for k in range(n_seg)]))
+                    flips_done = True
+                    pre = _map_fragments_parallel(gi, opt, items,
+                                                  pool_threads)
+                elif not fork_logged:
+                    fork_logged = True
+                    mlog("map_file_frag", f"no fork pool for -t "
+                         f"{n_threads}: {refused}; mapping in this "
+                         f"process")
             # whole-batch native tails: anchors -> GAF text in one call,
             # the per-read path only for what it cannot take
             batch_txt = None
-            flips_done = False
             if front_res and gwfa_pool is None \
                     and not (opt.flag & _EMIT_BAIL_NOCIG):
                 items = [(fi, batch[frags[fi][0]].name,
@@ -1139,7 +1243,9 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 qlens = [len(x) for x in seqs]
                 fr = front_res.get(fi) if front_res is not None else None
                 fast = cigar_sink is None
-                if fr is not None:
+                if pre is not None:
+                    gcs_list = [pre[fi]]
+                elif fr is not None:
                     gcs_list = [map_frag_tail(
                         gi, qlens, seqs, opt, batch[off].name, fr.ax,
                         fr.ay, fr.rep_len, fr.mini_pos, fr.n_mv,
@@ -1156,24 +1262,9 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                                          gwfa_pool=gp)]
                 return qlens, gcs_list
 
-            def emit_one(gcs, n_seg, qlens, name):
-                if cov is not None:
-                    cov_map(gi.g, gcs, opt.min_cov_mapq, opt.min_cov_blen,
-                            *cov, name)
-                else:
-                    out.write(write_gaf(gi.g, gcs, n_seg, qlens, name,
-                                        opt.flag))
-
             def emit_frag(off, n_seg, qlens, gcs_list):
-                if (opt.flag & MG_M_FRAG_MODE) \
-                        and (opt.flag & MG_M_FRAG_MERGE):
-                    emit_one(gcs_list[0], n_seg, qlens, batch[off].name)
-                    return
-                for k in range(n_seg):
-                    t = batch[off + k]
-                    gck = gcs_list[k] if len(gcs_list) > 1 else \
-                        (gcs_list[0] if k == 0 else None)
-                    emit_one(gck, 1, [t.l_seq], t.name)
+                out.write(frag_records(gi, opt, batch, off, n_seg, qlens,
+                                       gcs_list, cov))
 
             todo = [fi for fi in range(len(frags))
                     if batch_txt is None or batch_txt.get(fi) is None]

@@ -46,13 +46,14 @@ def collect_minimizers(gi: MinimizerIndex, qlens: List[int], seqs: List[str]):
 
 
 def collect_minimizers_device(gi: MinimizerIndex, qlens: List[int],
-                              seqs: List[str], device):
+                              seqs: List[str], device, mesh=None):
     """collect_minimizers with the sketch on `device` (--seed-device):
     the index builder's chunk-halo sweep (index/midx_device.py), exact
-    for queries of any length.  Equal to collect_minimizers bit for
-    bit."""
+    for queries of any length.  With `mesh`, the sweep's chunk batches
+    split data-parallel over the mesh's "data" ranks (one long query over
+    several devices).  Equal to collect_minimizers bit for bit."""
     sk = sketch_segments_device([s.upper() for s in seqs], gi.w, gi.k,
-                                device=device)
+                                device=device, mesh=mesh)
     xs, ys = [], []
     total = 0
     for i, ((x, y), ql) in enumerate(zip(sk, qlens)):

@@ -166,11 +166,23 @@ class HashJoinIndex:
     @staticmethod
     def host_arrays(gi) -> dict:
         """numpy tables exactly as ops/anchors_hash.py builds them."""
-        keys = np.asarray(gi.keys, dtype=np.uint64)
-        start = np.asarray(gi.key_start, dtype=np.int64)
-        cnt = np.asarray(gi.key_cnt, dtype=np.int64)
-        pos = np.asarray(gi.pos, dtype=np.uint64)
-        seg_len = _seg_len(gi)
+        return HashJoinIndex.key_arrays(
+            np.asarray(gi.keys, dtype=np.uint64),
+            np.asarray(gi.key_start, dtype=np.int64),
+            np.asarray(gi.key_cnt, dtype=np.int64),
+            np.asarray(gi.pos, dtype=np.uint64), _seg_len(gi))
+
+    @staticmethod
+    def key_arrays(keys, start, cnt, pos, seg_len, hbits_min: int = 0) -> dict:
+        """numpy tables from flat index arrays (ops/anchors_hash.py
+        HashJoinIndex.from_arrays): an "idx" shard's keys with their
+        rebased starts; hbits_min forces a common table size over the
+        shards."""
+        keys = np.asarray(keys, dtype=np.uint64)
+        start = np.asarray(start, dtype=np.int64)
+        cnt = np.asarray(cnt, dtype=np.int64)
+        pos = np.asarray(pos, dtype=np.uint64)
+        seg_len = np.asarray(seg_len, dtype=np.int64)
         K = len(keys)
         wide = keys.max(initial=0) >= 1 << 34
         if start.max(initial=0) >= 1 << 22:
@@ -180,7 +192,7 @@ class HashJoinIndex:
         pay = (start.astype(np.uint32) << np.uint32(10)) \
             | (np.minimum(cnt, 255).astype(np.uint32) << np.uint32(2)) \
             | (hh & np.uint32(3))
-        hbits = max(4, int(np.ceil(np.log2(max(K, 1) * 2))))
+        hbits = max(4, hbits_min, int(np.ceil(np.log2(max(K, 1) * 2))))
         for _ in range(6):
             H = 1 << hbits
             s1, s2 = _slot_hashes_np(hh, hl, hbits)

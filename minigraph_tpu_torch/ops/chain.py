@@ -26,6 +26,8 @@ ayl = qpos.  Outputs f, p are (B, A) int32.
 """
 from __future__ import annotations
 
+import math
+
 import torch
 
 from . import u32
@@ -132,3 +134,27 @@ def lchain_dp_planes(axh, axl, ayh, ayl, n_a, maxdx: int = 5000,
                    n_a.to(I32).contiguous(), B, A, int(window), int(maxdx),
                    int(maxdy), int(bw), float(pen_gap), float(pen_skip), f, p)
     return f, p
+
+
+def lchain_dp_device(ax, ay, n_a, max_dist_x: int = 5000,
+                     max_dist_y: int = 5000, bw: int = 500,
+                     chn_pen_gap: float = 0.1827,
+                     chn_pen_skip: float = 0.00913, window: int = 64):
+    """Banded chain DP on u64 anchors (the contract of ops/chain_jax.py
+    `lchain_dp_device`, the v1 map step's chain) -> (f, p), (B, A) int32.
+
+    ax, ay: (B, A) u64 anchors as int64 bit patterns (ops/u64.py), sorted
+    by x, padded with U64MAX.  The JAX package documents its
+    `lchain_dp_tiled` as giving "identical results" to this scan; K4
+    (csrc/chain_ring.cu) computes that one on the anchors' u32 planes,
+    so this splits the records into the planes and calls
+    `lchain_dp_planes`: the kernel on the card, the plain version on the
+    CPU.  The tile only has to divide A (the result does not depend on
+    it)."""
+    from . import u64
+    A = ax.shape[1]
+    tile = math.gcd(A, 256) if A else 1
+    return lchain_dp_planes(u64.srl(ax, 32), ax & u32.U32MAX,
+                            u64.srl(ay, 32), ay & u32.U32MAX, n_a,
+                            max_dist_x, max_dist_y, bw, chn_pen_gap,
+                            chn_pen_skip, window=window, tile=tile)

@@ -1006,3 +1006,114 @@ def test_sketch_segments_device_on_card(card):
             h_order = np.argsort(hy, kind="stable")
             assert np.array_equal(y[order], hy[h_order])
             assert np.array_equal(x[order], hx[h_order])
+
+
+@pytest.fixture(scope="module")
+def v1_data(tmp_path_factory):
+    """A 300 kb bubble graph and 64 reads padded to 2048 (one empty)."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.ops.sketch import encode_batch
+    from minigraph_tpu_torch.tools.synth import (make_reference,
+                                                 simulate_reads,
+                                                 write_bubble_rgfa)
+    path = str(tmp_path_factory.mktemp("v1") / "g.gfa")
+    ref = make_reference(300_000, seed=131)
+    hap = write_bubble_rgfa(ref, 132, path, seg_len=30_000)
+    reads = [s for _, s in simulate_reads([hap], 63, seed=133,
+                                          mean_len=1300, min_len=800,
+                                          max_len=1900)] + [""]
+    codes, lens = encode_batch(reads, pad_to=2048)
+    return build_index(read_gfa(path), 17, 11), codes, lens
+
+
+def test_v1_step_on_card_matches_cpu(card, v1_data):
+    """ops/pipeline.py make_map_step (the exact sketch, the binary-search
+    collect, K4 at W = 64) on the card against the same step on CPU
+    tensors: every output bitwise, K4 launched once."""
+    from minigraph_tpu_torch.ops.pipeline import DeviceIndex, make_map_step
+    gi, codes, lens = v1_data
+    kernels.reset_launches()
+    got = make_map_step(DeviceIndex.from_host(gi, card), 512, 2048)(
+        codes, lens)
+    assert kernels.launches["chain_ring"] == 1
+    want = make_map_step(DeviceIndex.from_host(gi, "cpu"), 512, 2048)(
+        codes, lens)
+    for key, v in want.items():
+        assert torch.equal(v, got[key].cpu()), key
+    assert int(want["n_anchors"].max()) > 100
+
+
+@pytest.mark.parametrize("window", [64, 32])
+def test_ring_chain_on_v1_anchors(card, v1_data, window):
+    """K4 through ops/chain.py lchain_dp_device at the v1 step's windows
+    against its plain version on the v1 collect's anchors."""
+    from minigraph_tpu_torch.ops import u32, u64
+    from minigraph_tpu_torch.ops.chain import lchain_dp_device
+    from minigraph_tpu_torch.ops.pipeline import (DeviceIndex,
+                                                  collect_anchors_device)
+    from minigraph_tpu_torch.ops.sketch_v2 import sketch_device_v2
+    gi, codes, lens = v1_data
+    dix = DeviceIndex.from_host(gi, card)
+    mx, my, n_mv = sketch_device_v2(torch.from_numpy(codes).cuda(),
+                                    torch.from_numpy(lens).cuda(), gi.w,
+                                    gi.k, 512)
+    ax, ay, n_a = collect_anchors_device(
+        dix.keys, dix.key_start, dix.key_cnt, dix.pos, dix.seg_len, mx, my,
+        n_mv, 50, 16, 2048)
+    got = lchain_dp_device(ax, ay, n_a, window=window)
+    want = lchain_dp_tiled_ref(u64.srl(ax, 32), ax & u32.U32MAX,
+                               u64.srl(ay, 32), ay & u32.U32MAX, n_a, MDX,
+                               MDY, BW, 0.1827, 0.00913, window=window)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+
+
+def test_sharded_steps_nccl_world_one(card, v1_data):
+    """parallel/shard.py's five steps on a 1x1 mesh of an NCCL process
+    group of one rank: each equals its unsharded step on the card."""
+    import socket
+
+    import torch.distributed as dist
+
+    from minigraph_tpu_torch.ops.anchors import HashJoinIndex, JoinIndex
+    from minigraph_tpu_torch.ops.pipeline import (DeviceIndex, make_map_step,
+                                                  make_map_step_v2)
+    from minigraph_tpu_torch.parallel import shard
+    gi, codes, lens = v1_data
+    w, k = gi.w, gi.k
+    dix, ji = DeviceIndex.from_host(gi, card), JoinIndex.from_host(gi, 16,
+                                                                    card)
+    hi = HashJoinIndex.from_host(gi, 16, card)
+    v2 = make_map_step_v2(ji, w, k, acap=512, qcap=512, window=16)(codes,
+                                                                    lens)
+    v1w = make_map_step(dix, 512, 512, window=32)(codes, lens)
+    hs = make_map_step_v2(hi, w, k, acap=512, qcap=512, window=16)(codes,
+                                                                    lens)
+    want = {"v1": make_map_step(dix, 512, 512)(codes, lens), "v2": v2,
+            "v2_idx": v2, "hash_idx": hs, "v1_idx": v1w}
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        port = s.getsockname()[1]
+    dist.init_process_group("nccl", init_method=f"tcp://127.0.0.1:{port}",
+                            world_size=1, rank=0)
+    try:
+        mesh = shard.make_mesh(1, device="cuda")
+        steps = {
+            "v1": shard.make_sharded_map_step(mesh, dix, 512, 512),
+            "v2": shard.make_sharded_map_step_v2(mesh, ji, w, k, acap=512,
+                                                 qcap=512, window=16),
+            "v2_idx": shard.make_index_sharded_map_step_v2(
+                mesh, ji, w, k, acap=512, qcap=512),
+            "hash_idx": shard.make_hash_sharded_map_step(
+                mesh, gi, acap=512, qcap=512, device="cuda"),
+            "v1_idx": shard.make_index_sharded_map_step(mesh, dix, 512,
+                                                        512)}
+        for name, step in steps.items():
+            res = step(codes, lens)
+            if not isinstance(res, dict):
+                res = {"best": res[0], "n_anchors": res[1]}
+            for key, v in res.items():
+                assert torch.equal(v, want[name][key]), (name, key)
+    finally:
+        dist.destroy_process_group()
