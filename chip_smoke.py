@@ -152,7 +152,20 @@ Phases, in order; any failure exits non-zero:
    forks 8 workers) and in this one (it holds a CUDA context, so it maps
    here and logs why), the rGFA bytes of phase 10 both times; (e)
    tools/devprof.py's stage table at --bucket 2048x256 --n 256 on phase
-   4's graph and reads.
+   4's graph and reads;
+13. the offline tools (tools/mgutils*.py, tools/profmap.py): (a) the
+   cookbook chain on phase 10's graph: -cxasm --call -l10k of its three
+   samples, then again with --seed-device (BEDs equal, K1 launched once
+   a chunk batch of every contig of 16384 bp or more), paste, `python -m
+   minigraph_tpu_torch.tools.mgutils` merge -s, merge2vcf -r 0,
+   addsample, segfreq (on the graph's gfa2bed), getlcr and bed2sql, row
+   counts checked (one VCF record a bubble, the samples in order); (b)
+   stableGaf of a --vc GAF of phase 4's reads (every mapped record back,
+   every path in stable coordinates, columns 1-9 equal phase 4's stable
+   GAF but for reverse-strand records on one contig, one base to the
+   left, as the JAX tool writes them) and subgaf on it; (c)
+   tools/profmap.py in a child process on phase 4's graph and reads with
+   -x lr and with -c, its five lines printed, every stage that ran > 0.
 
 After the build it prints ptxas' registers, stack frame and spills of
 the sketch, chunked-chain, ring-chain, banded-score, backtrack,
@@ -170,6 +183,7 @@ import dataclasses
 import io
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -2080,6 +2094,246 @@ def devprof_phase(gfa, reads_fa):
     return r
 
 
+ROOT = Path(__file__).resolve().parent
+
+
+def mgutils_run(args, out_path, stdin=None):
+    """python -m minigraph_tpu_torch.tools.mgutils <args> > out_path;
+    returns (seconds, stderr).  Fails unless it exits 0."""
+    t0 = time.perf_counter()
+    with open(out_path, "w") as out, \
+            open(stdin or os.devnull) as inp:
+        r = subprocess.run(
+            [sys.executable, "-m", "minigraph_tpu_torch.tools.mgutils"]
+            + args, stdin=inp, stdout=out, stderr=subprocess.PIPE,
+            text=True, cwd=ROOT, timeout=300)
+    dt = time.perf_counter() - t0
+    if r.returncode:
+        raise AssertionError(f"phase 13: mgutils {args[0]} exit "
+                             f"{r.returncode}\n{r.stderr[-2000:]}")
+    return dt, r.stderr
+
+
+def body_lines(path):
+    return [ln for ln in open(path).read().splitlines()
+            if not ln.startswith("#")]
+
+
+def cookbook_phase(work, ggen_out, kernels):
+    """Phase 13 (a): the cookbook chain on phase 10's graph: -cxasm --call
+    -l10k of its three samples (the host route, then --seed-device),
+    paste, mgutils merge -s, merge2vcf -r 0, addsample, segfreq, getlcr
+    and bed2sql."""
+    from minigraph_tpu_torch import cli
+    from minigraph_tpu_torch.mapping import mapper
+    from minigraph_tpu_torch.seqio.bseq import read_all
+    samples, ggs_gfa, _ = ggen_out
+    names = [f"sample{i}" for i in range(len(samples))]
+    beds, t_call = [], []
+    for fa in samples:
+        bed = str(work / f"cb_{Path(fa).stem}.bed")
+        t0 = time.perf_counter()
+        rc = cli.main(["-cxasm", "--call", "-l10k", "-t8", "-o", bed,
+                       ggs_gfa, fa])
+        t_call.append(time.perf_counter() - t0)
+        if rc:
+            raise AssertionError(f"phase 13 (a): --call {fa} exit {rc}")
+        beds.append(open(bed).read())
+    # the same calls with the seed stage on the card: K1 sweeps every
+    # contig of 16384 bp or more once (map_one, the per-read path)
+    want_lc = sum(sweep_launches([r.seq.upper()], 10, 19)[0]
+                  for fa in samples for r in read_all(fa)
+                  if len(r.seq) >= mapper.SEED_DEVICE["min_len"])
+    kernels.reset_launches()
+    t0 = time.perf_counter()
+    try:
+        for fa, want in zip(samples, beds):
+            bed = str(work / f"cb_{Path(fa).stem}_sd.bed")
+            rc = cli.main(["-cxasm", "--call", "-l10k", "-t8",
+                           "--seed-device", "-o", bed, ggs_gfa, fa])
+            if rc or open(bed).read() != want:
+                raise AssertionError(f"phase 13 (a): --call --seed-device "
+                                     f"{fa}: exit {rc}, BED equal to the "
+                                     f"host run: {open(bed).read() == want}")
+    finally:
+        mapper.SEED_DEVICE["on"] = False
+    t_sd = time.perf_counter() - t0
+    launches = dict(kernels.launches)
+    if launches["sketch"] <= 0 or launches["sketch"] != want_lc:
+        raise AssertionError(f"phase 13 (a): {launches['sketch']} K1 "
+                             f"launches for {want_lc} chunk batches")
+    rows = [b.splitlines() for b in beds]
+    n_bub = len(rows[0])
+    if n_bub == 0 or any(len(r) != n_bub for r in rows):
+        raise AssertionError(f"phase 13 (a): BED rows "
+                             f"{[len(r) for r in rows]}")
+    t_each = " / ".join(f"{t:.1f}" for t in t_call)
+    log(f"phase 13 (a) -cxasm --call -l10k of the three samples on phase "
+        f"10's graph: {n_bub} bubbles, {t_each} s; with --seed-device "
+        f"{t_sd:.1f} s for the three, BEDs equal, "
+        f"{launches['sketch']} K1 launches (launches {launches})")
+
+    pasted, smp = str(work / "cb_pasted.bed"), str(work / "cb_samples.txt")
+    with open(pasted, "w") as f:
+        f.write("\n".join("\t".join(p) for p in zip(*rows)) + "\n")
+    with open(smp, "w") as f:
+        f.write("\n".join(names) + "\n")
+    # gfatools gfa2bed of the graph (segfreq): SN, SO, SO + LN, name, SR
+    g2b = str(work / "cb_gfa2bed.bed")
+    with open(ggs_gfa) as f, open(g2b, "w") as out:
+        for ln in f:
+            if ln.startswith("S\t"):
+                t = ln.rstrip("\n").split("\t")
+                tag = dict(x.split(":", 2)[::2] for x in t[3:])
+                so = int(tag["SO"])
+                out.write(f"{tag['SN']}\t{so}\t{so + int(tag['LN'])}\t{t[1]}"
+                          f"\t{tag['SR']}\n")
+    merged, vcf = str(work / "cb_merged.bed"), str(work / "cb.vcf")
+    secs = {}
+    secs["merge"], _ = mgutils_run(["merge", "-s", smp, "-"], merged,
+                                   stdin=pasted)
+    secs["merge2vcf"], _ = mgutils_run(["merge2vcf", "-r", "0", merged], vcf)
+    added = str(work / "cb_added.bed")
+    secs["addsample"], _ = mgutils_run(["addsample", merged, smp], added)
+    freq = str(work / "cb_segfreq.txt")
+    secs["segfreq"], freq_err = mgutils_run(["segfreq", g2b, merged], freq)
+    lcr = str(work / "cb_lcr.bed")
+    secs["getlcr"], _ = mgutils_run(["getlcr", "-r", "1", "-a", "1", merged],
+                                    lcr)
+    sql = str(work / "cb.sql")
+    secs["bed2sql"], _ = mgutils_run(["bed2sql", smp, pasted], sql)
+
+    head = [ln for ln in open(vcf) if ln.startswith("#CHROM")]
+    n_seg = sum(1 for ln in open(ggs_gfa) if ln.startswith("S\t"))
+    n_call = sum(ln.startswith("INSERT INTO call ") for ln in open(sql))
+    n_called = sum(c != "." for r in zip(*rows) for c in
+                   (x.split("\t")[5] for x in r))
+    checks = {"merged rows": (len(body_lines(merged)), n_bub),
+              "VCF body lines": (len(body_lines(vcf)), n_bub),
+              "addsample rows": (len(body_lines(added)), n_bub),
+              "segfreq rows": (len(body_lines(freq)), n_seg),
+              "bed2sql calls": (n_call, n_called),
+              "#CHROM samples": (head[0].rstrip("\n").split("\t")[9:]
+                                 if head else None, names)}
+    for what, (got, want) in checks.items():
+        if got != want:
+            raise AssertionError(f"phase 13 (a): {what} {got}, want {want}")
+    log(f"phase 13 (a) paste -> mgutils merge -s -> merge2vcf -r 0 "
+        f"({n_bub} VCF records, samples {names}), addsample, segfreq "
+        f"({n_seg} segments, {freq_err.count(chr(10))} repeat-class lines on "
+        f"stderr), getlcr ({len(body_lines(lcr))} regions), bed2sql "
+        f"({n_call} calls); seconds "
+        + ", ".join(f"{k} {v:.2f}" for k, v in secs.items()))
+
+
+def gaf_tools_phase(gfa, reads_fa, host_gaf, work):
+    """Phase 13 (b): stableGaf and subgaf on a --vc GAF of phase 4's
+    reads, held to phase 4's stable-coordinate GAF."""
+    from minigraph_tpu_torch import cli
+    vc = str(work / "tools_vc.gaf")
+    t0 = time.perf_counter()
+    rc = cli.main(["--vc", "-t8", "--device", "none", "-o", vc, gfa,
+                   reads_fa])
+    t_vc = time.perf_counter() - t0
+    if rc:
+        raise AssertionError(f"phase 13 (b): --vc exit {rc}")
+    stable = str(work / "tools_stable.gaf")
+    t_st, _ = mgutils_run(["stableGaf", gfa, vc], stable)
+    mapped = [ln.split("\t") for ln in open(vc).read().splitlines()
+              if ln.split("\t")[5] != "*"]
+    got = [ln.split("\t") for ln in open(stable).read().splitlines()]
+    walk = re.compile(r"^([><][^\s:><]+:\d+-\d+)+$")
+    contigs = {ln.split("\tSN:Z:")[1].split("\t")[0] for ln in open(gfa)
+               if ln.startswith("S\t")}
+    if len(got) != len(mapped) or [t[0] for t in got] != \
+            [t[0] for t in mapped]:
+        raise AssertionError(f"phase 13 (b): stableGaf wrote {len(got)} "
+                             f"records for {len(mapped)} mapped")
+    bad = [t[5] for t in got if t[5] not in contigs and not walk.match(t[5])]
+    if bad:
+        raise AssertionError(f"phase 13 (b): paths not in stable "
+                             f"coordinates: {bad[:3]}")
+    # columns 1-9 equal phase 4's stable GAF, but for a reverse-strand
+    # record on one contig, which the tool puts one base to the left
+    # (`path_len - 1 - qe`, as the JAX tool does)
+    want = [ln.split("\t")[:9] for ln in host_gaf.splitlines()
+            if ln.split("\t")[5] != "*"]
+    n_rev = 0
+    for g, w in zip(got, want):
+        g = g[:9]
+        if w[4] == "-" and w[5] in contigs:
+            n_rev += 1
+            g = g[:7] + [str(int(g[7]) + 1), str(int(g[8]) + 1)]
+        if g != w:
+            raise AssertionError(f"phase 13 (b): stableGaf {g} against "
+                                 f"the stable GAF's {w}")
+    # subgaf: the reference contig whole, then a window of it
+    ref_len = max(int(t[6]) for t in got if t[5] == "chr1")
+    touching = sum(t[5] == "chr1" or bool(re.search(r"[><]chr1:", t[5]))
+                   for t in got)
+    sub = str(work / "tools_sub.gaf")
+    t_sub, _ = mgutils_run(["subgaf", stable, f"chr1:0-{ref_len}"], sub)
+    n_sub = sum(1 for _ in open(sub))
+    win, reg = str(work / "tools_win.gaf"), \
+        f"chr1:{ref_len // 5}-{2 * ref_len // 5}"
+    t_win, _ = mgutils_run(["subgaf", stable, reg], win)
+    n_win = sum(1 for _ in open(win))
+    if n_sub != touching or not 0 < n_win < n_sub:
+        raise AssertionError(f"phase 13 (b): subgaf {n_sub} records of "
+                             f"{touching} on chr1, {n_win} in the window")
+    log(f"phase 13 (b) --vc GAF of phase 4's reads ({t_vc:.1f} s, "
+        f"{len(mapped)} mapped records) -> stableGaf ({t_st:.2f} s): every "
+        f"record back in stable coordinates, columns 1-9 equal phase 4's "
+        f"stable GAF ({n_rev} reverse-strand records one base to the "
+        f"left); subgaf chr1 whole {n_sub} records ({t_sub:.2f} s), "
+        f"{reg} {n_win} ({t_win:.2f} s)")
+
+
+def profmap_phase(gfa, reads_fa, smi):
+    """Phase 13 (c): tools/profmap.py in a child process (the native
+    library reads MGT_PROF once) on phase 4's graph and reads, -x lr and
+    -c: the native stages' us/read and counters on this machine."""
+    env = {k: v for k, v in os.environ.items() if k != "MGT_PROF"}
+    for opts in (["-x", "lr"], ["-c"]):
+        t0 = time.perf_counter()
+        r = subprocess.run(
+            [sys.executable, "-m", "minigraph_tpu_torch.tools.profmap", gfa,
+             reads_fa] + opts, capture_output=True, text=True, cwd=ROOT,
+            env=env, timeout=600)
+        dt = time.perf_counter() - t0
+        if r.returncode:
+            raise AssertionError(f"phase 13 (c) profmap {opts}: exit "
+                                 f"{r.returncode}\n{r.stderr[-2000:]}")
+        lines = r.stdout.splitlines()
+        if len(lines) != 5 or not lines[0].startswith("== "):
+            raise AssertionError(f"phase 13 (c) profmap {opts}: {lines}")
+        val = {ln.split()[0]: {m.group(1).strip(): float(m.group(2))
+                               for m in re.finditer(
+                                   r"([a-z_ -]+?) (-?\d+(?:\.\d+)?)",
+                                   ln.split(":", 1)[1])}
+               for ln in lines[1:]}
+        b, t, gc, gw = (val[k] for k in ("batch", "tail", "gchain", "gwfa"))
+        # the counters of every stage that ran, and the wall times of
+        # the stages every read passes (a rarer stage's us/read can
+        # print as 0.0 at one decimal)
+        ran = [b["collect"], b["map_tail"], b["format"], t["lchain"],
+               t["gchain_full"], gc["dp"], t["first-pass anchors"]]
+        if t["rescue calls"]:
+            ran += [t["rescue"], t["anchors"], t["iters"]]
+        if gc["gwfa calls"]:
+            ran += [gw["steps"], gw["peak"]]
+        if "-c" in opts:
+            ran.append(b["cigar"])
+        if min(ran) <= 0:
+            raise AssertionError(f"phase 13 (c) profmap {opts}: a stage "
+                                 f"that ran reads 0: {lines}")
+        log(f"phase 13 (c) profmap {' '.join(opts)} on phase 4's graph and "
+            f"reads, one host thread ({dt:.1f} s with the interpreter's "
+            f"start and the index; {smi}):")
+        for ln in lines:
+            log("  " + ln)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         sys.stderr.write("chip_smoke: no CUDA device\n")
@@ -2369,6 +2623,13 @@ def main() -> int:
     dist_phase(gfa, reads_fa, host_gaf, work)
     fork_phase(gfa, *ggen_out)
     devprof_phase(gfa, reads_fa)
+
+    # ---- 13. the offline tools: (a) the cookbook chain on phase 10's
+    # graph (--call, again with --seed-device on K1, then mgutils), (b)
+    # the GAF tools, (c) profmap in a child process
+    cookbook_phase(work, ggen_out, kernels)
+    gaf_tools_phase(gfa, reads_fa, host_gaf, work)
+    profmap_phase(gfa, reads_fa, smi)
 
     entries = [
         dict(name="sketch", route="cuda",

@@ -1,7 +1,9 @@
 """The port's fork pool (mapping/mapper.py _map_fragments_parallel, the
 JAX package's pool of the same name) on the CPU: the Python reader loop
 with --vc (no front, an output shape the native batch cannot write) and
-graph generation (-cxggs) at -t 4 against -t 1 and the JAX command line;
+graph generation (-xggs and -cxggs, then -xasm --call, -cxasm --call
+and --cov on the JAX package's -cxggs graph of one sample) at -t 4
+against -t 1 and the JAX command line at -t 1;
 the guard that keeps a process holding a CUDA context from forking
 (torch.cuda.is_initialized patched to true: the same bytes mapped in
 this process and one log line saying why); and the GWFA pool route
@@ -10,9 +12,18 @@ gwfa_device="cpu")), which forks as the JAX package does, so the pool
 gets no jobs.  Counts of the pool's calls (a wrapper around
 _map_fragments_parallel) show which runs forked.  Inputs from
 tools/synth.py.  Tolerance: exact equality.  Each test has its own
-timeout: a forked child inherits the parent's threads' locks."""
+timeout: a forked child inherits the parent's threads' locks.
+
+The JAX package's pool maps every read with fast_emit=True
+(minigraph_tpu/mapping/mapper.py:1239), so without -c its graph
+generation at -t > 1 loses the chains of single-segment queries (the
+worker gets back only their GAF text, written natively):
+test_jax_pool_fault records
+that, and the port's workers map as map_one does (fast_emit=False) and
+keep the -t 1 bytes."""
 import contextlib
 import io
+import re
 import signal
 
 import pytest
@@ -59,6 +70,11 @@ def files(tmp_path_factory):
                     cut_contigs(sample, seed + 1, mean_len=15000,
                                 min_len=4000, max_len=30000))
         out[f"s{i}"] = str(d / f"s{i}.fa")
+    # the graph of the call and cov cases: the JAX package's -cxggs of
+    # sample 0 (-t 1), so that the queries hold bubbles against it
+    out["gg"] = str(d / "gg.gfa")
+    run(jax_cli.main, ["-t1", "-cxggs", "-l5k", "-d5k", "-o", out["gg"],
+                       out["g"], out["s0"]])
     return out
 
 
@@ -85,15 +101,25 @@ def run(main, argv):
     return out.getvalue(), err.getvalue()
 
 
-CASES = {"vc": (["--vc"], ["r"]),
-         "ggs": (["-xggs", "-l5k", "-d5k"], ["s0", "s1"]),
-         "ggs_cigar": (["-cxggs", "-l5k", "-d5k"], ["s0", "s1"])}
+# name: (options, graph, queries)
+CASES = {"vc": (["--vc"], "g", ["r"]),
+         "ggs": (["-xggs", "-l5k", "-d5k"], "g", ["s0", "s1"]),
+         "ggs_cigar": (["-cxggs", "-l5k", "-d5k"], "g", ["s0", "s1"]),
+         "call": (["-xasm", "--call", "-l5k"], "gg", ["s1"]),
+         "call_cigar": (["-cxasm", "--call", "-l5k"], "gg", ["s1"]),
+         # asm's --min-cov-blen is 100k: no contig here would count
+         "cov": (["-xasm", "--cov", "-l5k", "--min-cov-blen", "1k"], "gg",
+                 ["s1"])}
+
+
+def case_paths(files, case):
+    opts, g, qs = CASES[case]
+    return opts, [files[g]] + [files[q] for q in qs]
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_pool_matches_one_thread_and_jax(files, pool_calls, case):
-    opts, qs = CASES[case]
-    paths = [files["g"]] + [files[q] for q in qs]
+    opts, paths = case_paths(files, case)
     want, _ = run(jax_cli.main, ["-t1"] + opts + paths)
     one, _ = run(cli.main, ["-t1", "--device", "none"] + opts + paths)
     assert not pool_calls
@@ -104,23 +130,33 @@ def test_pool_matches_one_thread_and_jax(files, pool_calls, case):
     if case.startswith("ggs"):
         n_seg = sum(ln.startswith("S\t") for ln in got.splitlines())
         assert n_seg > sum(ln.startswith("S\t") for ln in open(files["g"]))
+    elif case.startswith("call"):
+        assert got.count("\n") > 0
+    elif case == "cov":
+        assert n_covered(got) > 0
+
+
+def n_covered(gfa):
+    """Segments and links with a coverage above 0."""
+    return sum(float(v) > 0 for v in re.findall(r"\tdc:f:([^\t\n]+)", gfa))
 
 
 @pytest.mark.parametrize("case", list(CASES))
 def test_cuda_context_maps_in_process(files, pool_calls, monkeypatch, case):
     """A process that holds a CUDA context does not fork: the same bytes,
-    mapped here, and one line in the log."""
-    opts, qs = CASES[case]
-    paths = [files["g"]] + [files[q] for q in qs]
+    mapped here (the JAX package's -t 1 bytes), and one line in the
+    log."""
+    opts, paths = case_paths(files, case)
+    want, _ = run(jax_cli.main, ["-t1"] + opts + paths)
     one, _ = run(cli.main, ["-t1", "--device", "none"] + opts + paths)
     monkeypatch.setattr(torch.cuda, "is_initialized", lambda: True)
     got, err = run(cli.main, ["-t4", "--device", "none"] + opts + paths)
     assert not pool_calls
-    assert got == one
+    assert got == one == want
     lines = [ln for ln in err.splitlines() if "no fork pool" in ln]
     assert lines and "CUDA context" in lines[0]
     # one line a file loop (the reads), one a sample (graph generation)
-    assert len(lines) == (1 if case == "vc" else 2)
+    assert len(lines) == len(CASES[case][2])
 
 
 def test_gwfa_pool_without_front_forks(files, pool_calls):
@@ -149,3 +185,26 @@ def test_seed_device_on_card_refuses_fork(monkeypatch):
     assert "seed-device" in mapper.fork_refused()
     monkeypatch.setitem(mapper.SEED_DEVICE, "device", "cpu")
     assert mapper.fork_refused() is None
+
+
+@pytest.mark.parametrize("case", ["ggs", "ggs_cigar", "call", "call_cigar",
+                                  "cov"])
+def test_jax_pool_fault(files, case):
+    """A fault of the reference, recorded: the JAX package's -t 4 graph
+    generation without -c differs from its own -t 1 (fewer segments,
+    fewer bubble calls), while the port's -t 4 keeps the -t 1 bytes
+    (test_pool_matches_one_thread_and_jax).  -c and --cov are not
+    touched: their flags keep the native emit off (the JAX package's
+    _EMIT_BAIL_FLAGS)."""
+    opts, paths = case_paths(files, case)
+    one, _ = run(jax_cli.main, ["-t1"] + opts + paths)
+    four, _ = run(jax_cli.main, ["-t4"] + opts + paths)
+    n_one, n_four = (sum(ln.startswith("S\t") for ln in x.splitlines())
+                     if case.startswith("ggs") else x.count("\n")
+                     for x in (one, four))
+    print(f"JAX {case}: -t1 {one.count(chr(10))} lines ({n_one} counted), "
+          f"-t4 {four.count(chr(10))} lines ({n_four} counted)")
+    if case in ("ggs", "call"):
+        assert n_four < n_one
+    else:
+        assert four == one
