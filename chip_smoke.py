@@ -12,15 +12,17 @@ Phases, in order; any failure exits non-zero:
    the sketch kernel at the three buckets' shapes on synthetic reads
    with N runs, tandem repeats and empty lanes, at lr's (k, w) = (17,
    11) and at asm's (19, 10); the exact chain kernel
-   (K2), the chunked-walk chain kernel (K3) and the backtrack walk
-   kernel (csrc/backtrack.cu, through ops/backtrack.py
+   (K2), the chunked-walk chain kernel (K3) and the fused backtrack
+   kernel (csrc/backtrack.cu, one launch of ops/backtrack.py
    backtrack_compact, on K2's f and p) on the same anchors from the
    real collect at each bucket's (B, A, W, T), the batch padded with
    empty reads to the bucket's width, K3's sure flags equal to K2's; the
    backtrack once more at the 8 kb shape with a step budget that flags
    lanes; each timed with CUDA events over back-to-back wrapper calls
    and replayed from a CUDA graph (the device time without the
-   wrapper's host cost), as are K4 and K7 in phases 5 and 6;
+   wrapper's host cost), as are K4 and K7 in phases 5 and 6; the
+   backtrack's clock buffer gives each of its four phases' cycles (max
+   and mean over blocks);
 4. main path at real size: a 5 Mb MHC-class synthetic reference as an
    rGFA bubble graph (its index has well over 1e5 keys, so the hash
    join runs), 1024 reads of 800-1900 bp plus 128 reads of ~15 kb mean
@@ -458,9 +460,14 @@ def check_chunked(args, W, T, reps, k2, k2_sure):
             "k3_over_k2_graph": graph_ms / k2["graph_ms"]}
 
 
+BT_PHASES = ("order", "walk", "flags", "compact")
+
+
 def check_backtrack(front, args, k2_out, reps, max_steps=None):
-    """The backtrack kernel (csrc/backtrack.cu, through backtrack_compact)
-    against the plain walk on K2's outputs, bitwise on every output."""
+    """The fused backtrack kernel (csrc/backtrack.cu, one launch of
+    backtrack_compact) against its plain version on K2's outputs,
+    bitwise on every output; its CUDA-event and CUDA-graph times and
+    each phase's clock64() cycles from its clock buffer."""
     from minigraph_tpu_torch.mapping.device_front import UCAP
     from minigraph_tpu_torch.ops import backtrack as bt
     f, p, _ = k2_out
@@ -488,11 +495,16 @@ def check_backtrack(front, args, k2_out, reps, max_steps=None):
             raise AssertionError("the step budget flagged no lane")
     ms = cuda_time(lambda: bt.backtrack_compact(*bargs, **kw), reps)
     graph_ms = graph_time(lambda: bt.backtrack_compact(*bargs, **kw), reps)
-    cand, s_idx, r_of, n_z = bt.candidate_order(f, args[4].to(torch.int32),
-                                                kw["min_sc"])
-    walk_args = (f, p, s_idx, r_of, n_z, kw["min_cnt"], kw["min_sc"],
-                 kw["max_drop"], UCAP, max_steps or 8 * A + 16)
-    walk_ms = cuda_time(lambda: bt.walk_cuda(*walk_args), reps)
+    clk = torch.zeros((B, 4), dtype=torch.int64, device=f.device)
+    timed = bt.backtrack_compact(*bargs, clock=clk, **kw)
+    if max_abs_err([timed[k] for k in keys], [got[k] for k in keys]):
+        raise AssertionError("the clock buffer changed the backtrack")
+    cyc = clk.to(torch.float64)
+    if not bool((cyc > 0).all()):
+        raise AssertionError("the backtrack's clock buffer has empty slots")
+    cycles = {name: {"max": int(cyc[:, i].max()),
+                     "mean": round(float(cyc[:, i].mean()), 1)}
+              for i, name in enumerate(BT_PHASES)}
     # f, p and four anchor planes in; four compacted planes, u (score and
     # count) and n_u, n_v, the flag out
     nbytes = B * A * 4 * 6 + B * A * 4 * 4 + B * UCAP * 4 * 2 + B * 12
@@ -502,11 +514,13 @@ def check_backtrack(front, args, k2_out, reps, max_steps=None):
         f" chains; steps max {int(steps.max())} mean "
         f"{float(steps.float().mean()):.1f} (budget {max_steps or 8 * A + 16});"
         f" backtrack_compact {ms:.4f} ms ({graph_ms:.4f} ms replayed from a "
-        f"CUDA graph), walk kernel alone {walk_ms:.4f} ms; plain {plain:.1f}"
-        f" ms, bound {bms:.4f} ms ({by})")
+        f"CUDA graph); cycles a block, max/mean: "
+        + ", ".join(f"{k} {v['max']}/{v['mean']:.0f}"
+                    for k, v in cycles.items())
+        + f"; plain {plain:.1f} ms, bound {bms:.4f} ms ({by})")
     return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
-            "walk_ms": walk_ms, "plain_ms": plain, "bound_ms": bms,
-            "bound_by": by, "library_ms": None,
+            "plain_ms": plain, "bound_ms": bms, "bound_by": by,
+            "library_ms": None, "cycles": cycles, "shape": [B, A],
             "max_steps": int(steps.max())}
 
 
@@ -2478,8 +2492,8 @@ def main() -> int:
         f"the device run, {st_host['n_perread']} of the host-only run")
     log(run_line("run (i) device path, K2, first run", st_first, n_reads))
     log(run_line("run (i) device path, K2", st, n_reads))
-    log(f"backtrack stage {st['stage_ms']['backtrack']:.3f} ms (candidate "
-        f"sort, walk kernel, compaction; {st['n_batches']} batches)")
+    log(f"backtrack stage {st['stage_ms']['backtrack']:.3f} ms (one fused "
+        f"kernel launch a batch; {st['n_batches']} batches)")
     for name, a, b, c, d in (("8 kb", k1_mid, k2_mid, k3_mid, kb_mid),
                              ("32 kb", k1_long, k2_long, k3_long, kb_long)):
         log(f"{name} bucket: sketch {json.dumps(a)}; chain {json.dumps(b)};"
@@ -2664,7 +2678,9 @@ def main() -> int:
              source="minigraph_tpu_torch/csrc/backtrack.cu",
              replaces="minigraph_tpu/ops/backtrack_jax.py:65",
              launches=launches["backtrack"],
-             **{k: v for k, v in kb.items() if k != "max_steps"}),
+             **{k: v for k, v in kb.items() if k != "max_steps"},
+             wider=[{k: v for k, v in d.items() if k != "max_steps"}
+                    for d in (kb_mid, kb_long)]),
         dict(name="wfa_wave", route="cuda",
              source="minigraph_tpu_torch/csrc/wfa_exact.cu",
              replaces="minigraph_tpu/ops/wfa_jax.py:27",

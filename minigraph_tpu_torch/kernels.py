@@ -53,8 +53,8 @@ KERNELS = {
     "probe_bucketed": ("probe.cu", "mgt_cuda_probe_bucketed", "pppiiiiippp"),
     "probe_flat": ("probe.cu", "mgt_cuda_probe_flat", "pppiiiippp"),
     "wfa_banded": ("wfa_banded.cu", "mgt_cuda_wfa_banded", "ppppiiiiiiiip"),
-    "backtrack": ("backtrack.cu", "mgt_cuda_backtrack",
-                  "pppppiiiiiiipppppppp"),
+    "backtrack": ("backtrack.cu", "mgt_cuda_backtrack_compact",
+                  "p" * 7 + "i" * 7 + "p" * 11),
     "wfa_wave": ("wfa_exact.cu", "mgt_cuda_wfa_wave",
                  "pppp" + "i" * 12 + "ppppp"),
     "wfa_walk": ("wfa_exact.cu", "mgt_cuda_wfa_walk",
@@ -151,13 +151,16 @@ def _load():
 def launch(name: str, *args) -> None:
     """Launch kernel `name` on the current stream.  Tensor arguments
     must already be on the card, contiguous and of the kernel's type
-    (the ops wrappers check that).  Raises if the launch fails."""
+    (the ops wrappers check that); None passes a null pointer.  Raises
+    if the launch fails."""
     _, entry, sig = KERNELS[name]
     if len(args) != len(sig):
         raise TypeError(f"{name}: expected {len(sig)} arguments")
     conv = []
     for a, kind in zip(args, sig):
-        if kind == "p":
+        if kind == "p" and a is None:
+            conv.append(None)
+        elif kind == "p":
             if not (a.is_cuda and a.is_contiguous()):
                 raise ValueError(f"{name}: tensors must be contiguous on "
                                  "the card")

@@ -20,16 +20,19 @@ per anchor (bits [0..13] p+1, 14 claimed, 15 chain start, 16 visited,
 [17..31] start-f low 15 bits), exactly as the JAX version packs it, so
 the equal-f tie tests flag the same reads.
 
-The function runs in three steps:
+The plain version, `backtrack_compact_ref`, runs in three steps:
 
   (a) the candidate order: a stable sort of (f, index) and its inverse
-      permutation, in PyTorch (the JAX version sorts outside any
-      kernel too);
-  (b) the walk, the per-lane state machine: `walk_ref`, the plain
-      version, on CPU tensors; the CUDA kernel csrc/backtrack.cu
-      (`walk_cuda`, one block a read) on tensors on the card;
+      permutation (`candidate_order`; the JAX version sorts outside
+      any kernel too);
+  (b) the walk, the per-lane state machine (`walk_ref`);
   (c) the flags that read the walk's final planes and the compaction
-      by first-anchor x, in PyTorch, shared by both walks.
+      by first-anchor x.
+
+On tensors on the card, `backtrack_compact` makes one launch of the
+fused CUDA kernel csrc/backtrack.cu instead (one block a read: the
+sort, the walk, the flags and the compaction in shared memory), with
+the plain version's outputs, bitwise.
 
 Where the JAX version reads plane[b, j[b]] with a one-hot reduction,
 the plain walk gathers (torch.gather), with j < 0 reading 0.  It runs
@@ -243,55 +246,34 @@ def walk_ref(f, p, s_idx, r_of, n_z, min_cnt: int, min_sc: int,
                 unsure=unsure, steps=lane_steps)
 
 
-# shared memory of one block of the kernel: f, pk, s_idx, r_of and vbuf
-# as int32, claimed_k as bytes, u_sc and u_cnt (csrc/backtrack.cu)
+# shared memory of one block of the fused kernel (csrc/backtrack.cu
+# smem_bytes): the sort's 64-bit keys over the next power of two of A
+# (s_idx and r_of after the sort), f and pk side by side, the chain keys,
+# five clock stamps, vbuf, a bit a rank, seven int arrays of ucap and
+# eight int scalars
 SMEM_LIMIT = 232448
+# threads of a block: the compaction gives each chain one
+MAX_UCAP = 256
 
 
 def walk_smem_bytes(A: int, ucap: int) -> int:
-    return 5 * 4 * A + ((A + 15) // 16) * 16 + 2 * 4 * ucap
-
-
-def walk_cuda(f, p, s_idx, r_of, n_z, min_cnt: int, min_sc: int,
-              max_drop: int, ucap: int, max_steps: int):
-    """Step (b) on the card: the CUDA kernel csrc/backtrack.cu, one
-    block a lane; the same outputs as walk_ref, bitwise."""
-    from .. import kernels
-    B, A = f.shape
-    if walk_smem_bytes(A, ucap) > SMEM_LIMIT:
-        raise ValueError(f"backtrack kernel: A={A} needs "
-                         f"{walk_smem_bytes(A, ucap)} bytes of shared "
-                         f"memory, a block holds {SMEM_LIMIT}")
-    dev = f.device
-    out = dict(pk=torch.empty((B, A), dtype=I32, device=dev),
-               vbuf=torch.empty((B, A), dtype=I32, device=dev),
-               u_sc=torch.empty((B, ucap), dtype=I32, device=dev),
-               u_cnt=torch.empty((B, ucap), dtype=I32, device=dev),
-               n_u=torch.empty(B, dtype=I32, device=dev),
-               n_v=torch.empty(B, dtype=I32, device=dev),
-               unsure=torch.empty(B, dtype=I32, device=dev),
-               steps=torch.empty(B, dtype=I32, device=dev))
-    if B:
-        kernels.launch("backtrack", f.to(I32).contiguous(),
-                       p.to(I32).contiguous(), s_idx, r_of,
-                       n_z.contiguous(), B, A, int(ucap), int(min_cnt),
-                       int(min_sc), int(max_drop), int(max_steps),
-                       out["pk"], out["vbuf"], out["u_sc"], out["u_cnt"],
-                       out["n_u"], out["n_v"], out["unsure"], out["steps"])
-    out["unsure"] = out["unsure"] != 0
-    return out
+    n_pow2 = 1 << (max(A, 1) - 1).bit_length()
+    return 8 * n_pow2 + 12 * A + 4 * max(1, (A + 31) // 32) + 36 * ucap + 72
 
 
 def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
                       min_sc: int, max_drop: int, ucap: int,
-                      max_steps: int = None):
-    """(B, A) planes -> compacted chains, per lane: the plain walk for
-    CPU tensors, the CUDA kernel (csrc/backtrack.cu) for tensors on the
-    card.
+                      max_steps: int = None, clock=None):
+    """(B, A) planes -> compacted chains, per lane: the plain version for
+    CPU tensors, one launch of the fused CUDA kernel (csrc/backtrack.cu)
+    for tensors on the card.
 
     f, p: int32 DP scores and parents; n_a: (B,); anchor planes are u32
     values in int64 tensors.  max_steps (default 8*A + 16) is the step
-    budget of a lane; no entry point passes it.  Returns a dict:
+    budget of a lane; no entry point passes it.  clock: None, or a
+    (B, 4) int64 tensor on the card that takes each block's clock64()
+    cycles of the kernel's four phases (order, walk, flags, compaction).
+    Returns a dict:
       c_axh/c_axl/c_ayh/c_ayl: (B, A) compacted chain anchors (dense
         from 0, forward order, chains in first-anchor-x order)
       u_sc/u_cnt: (B, ucap) int32 chain score / anchor count
@@ -300,15 +282,52 @@ def backtrack_compact(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
         equal-f interaction
       steps: (B,) int32 steps each lane's walk took
     """
-    walk = walk_ref if f.device.type == "cpu" else walk_cuda
-    return _backtrack(walk, f, p, n_a, axh, axl, ayh, ayl, min_cnt, min_sc,
-                      max_drop, ucap, max_steps)
+    if f.device.type == "cpu":
+        if clock is not None:
+            raise ValueError("the clock buffer is the CUDA kernel's")
+        return backtrack_compact_ref(f, p, n_a, axh, axl, ayh, ayl,
+                                     min_cnt, min_sc, max_drop, ucap,
+                                     max_steps)
+    from .. import kernels
+    B, A = f.shape
+    if not 1 <= ucap <= MAX_UCAP:
+        raise ValueError(f"backtrack kernel: ucap={ucap} outside "
+                         f"[1, {MAX_UCAP}]")
+    # past A = 8192, so also every A the packed parent field cannot hold
+    if walk_smem_bytes(A, ucap) > SMEM_LIMIT:
+        raise ValueError(f"backtrack kernel: A={A} needs "
+                         f"{walk_smem_bytes(A, ucap)} bytes of shared "
+                         f"memory, a block holds {SMEM_LIMIT}")
+    if clock is not None and (clock.shape != (B, 4)
+                              or clock.dtype != torch.int64):
+        raise ValueError("clock must be a (B, 4) int64 tensor")
+    if max_steps is None:
+        max_steps = 8 * A + 16
+    dev = f.device
+    out = {k: torch.empty((B, A), dtype=torch.int64, device=dev)
+           for k in ("c_axh", "c_axl", "c_ayh", "c_ayl")}
+    out.update(u_sc=torch.empty((B, ucap), dtype=I32, device=dev),
+               u_cnt=torch.empty((B, ucap), dtype=I32, device=dev),
+               n_u=torch.empty(B, dtype=I32, device=dev),
+               n_v=torch.empty(B, dtype=I32, device=dev),
+               bt_unsure=torch.empty(B, dtype=torch.bool, device=dev),
+               steps=torch.empty(B, dtype=I32, device=dev))
+    planes = [x.to(torch.int64).contiguous() for x in (axh, axl, ayh, ayl)]
+    kernels.launch("backtrack", f.to(I32).contiguous(),
+                   p.to(I32).contiguous(), n_a.to(I32).contiguous(),
+                   *planes, B, A, int(ucap), int(min_cnt), int(min_sc),
+                   int(max_drop), int(max_steps), out["c_axh"],
+                   out["c_axl"], out["c_ayh"], out["c_ayl"], out["u_sc"],
+                   out["u_cnt"], out["n_u"], out["n_v"], out["bt_unsure"],
+                   out["steps"], clock)
+    return out
 
 
 def backtrack_compact_ref(f, p, n_a, axh, axl, ayh, ayl, min_cnt: int,
                           min_sc: int, max_drop: int, ucap: int,
                           max_steps: int = None):
-    """backtrack_compact with the plain walk on any device."""
+    """The plain version of backtrack_compact, on any device: steps (a),
+    (b) and (c) in PyTorch."""
     return _backtrack(walk_ref, f, p, n_a, axh, axl, ayh, ayl, min_cnt,
                       min_sc, max_drop, ucap, max_steps)
 

@@ -1,8 +1,9 @@
-"""A CPU model of the backtrack kernel's schedule (csrc/backtrack.cu):
-one scalar state machine a lane, the select's downward scan over 32
-ranks at a time (the kernel's ballot), a step counter a lane and the
-step budget, run in place of the walk (step (b)) of the port's
-ops/backtrack.py backtrack_compact.  Held bitwise, on every output and
+"""A CPU model of a scalar backtrack walk: one state machine a lane,
+the select's downward scan over 32 ranks at a time (a warp's ballot over
+one byte a rank), a step counter a lane and the step budget, run in
+place of the walk (step (b)) of the port's plain ops/backtrack.py
+backtrack_compact_ref (tests/test_torch_backtrack_fused.py models the
+fused kernel csrc/backtrack.cu).  Held bitwise, on every output and
 on bt_unsure, against the port's plain walk and against the JAX
 package's ops/backtrack_jax.backtrack_compact (whose step budget is
 fixed at 8*A + 16, so the cases with a small budget compare the two

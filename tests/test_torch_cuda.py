@@ -573,8 +573,9 @@ BT_KEYS = ("c_axh", "c_axl", "c_ayh", "c_ayl", "u_sc", "u_cnt", "n_u", "n_v",
 def bt_planes(rng, B, A):
     """Backtrack inputs: random parent forests whose f values rise and
     fall (tests/test_backtrack_device.py's fuzz), an empty lane, a lane
-    of n_a = A, a lane of 100 three-anchor chains (over ucap = 64) and a
-    lane of few distinct f values (interacting equal-f ties)."""
+    of n_a = A, a lane of 100 three-anchor chains (over ucap = 64), a
+    lane of few distinct f values (interacting equal-f ties) and a lane
+    of kept chains two of which start at one x."""
     F = np.zeros((B, A), np.int32)
     P = np.full((B, A), -1, np.int32)
     NA = np.zeros(B, np.int32)
@@ -597,6 +598,16 @@ def bt_planes(rng, B, A):
             F[2, i: i + 3] = [5, 20, 45 + c % 10]
             P[2, i + 1: i + 3] = [i, i + 1]
     ax = np.sort(rng.integers(0, 1 << 33, (B, A)), axis=1)
+    if A >= 300 and B > 4:
+        # lane 4: twenty kept three-anchor chains, the first anchors of
+        # chains 3 and 10 at one x (flagged, build order kept)
+        NA[4] = 60
+        F[4], P[4] = 0, -1
+        for c in range(20):
+            i = 3 * c
+            F[4, i: i + 3] = [5, 20, 45 + (7 * c) % 20]
+            P[4, i + 1: i + 3] = [i, i + 1]
+        ax[4, 9] = ax[4, 30]
     ay = rng.integers(0, 1 << 40, (B, A))
     planes = [ax >> 32, ax & 0xFFFFFFFF, ay >> 32, ay & 0xFFFFFFFF]
     return [torch.from_numpy(x).cuda() for x in (F, P, NA, *planes)]
@@ -619,21 +630,40 @@ def test_backtrack_kernel_matches_ref(card, A, B, max_steps):
         assert A == 16 or (got["steps"] >= max_steps).any()
     if A >= 300 and max_steps is None:
         assert int(got["n_u"][2]) == 64 and got["bt_unsure"][2]
+        assert int(got["n_u"][4]) == 20 and got["bt_unsure"][4]
+
+
+def test_backtrack_kernel_clock(card):
+    """The clock buffer takes four positive phase cycle counts a block
+    and changes no output; a wrongly shaped buffer is refused."""
+    args = bt_planes(np.random.default_rng(9), 8, 2048)
+    kw = dict(min_cnt=3, min_sc=40, max_drop=60, ucap=64)
+    clk = torch.zeros((8, 4), dtype=torch.int64, device="cuda")
+    kernels.reset_launches()
+    got = backtrack_compact(*args, clock=clk, **kw)
+    ref = backtrack_compact(*args, **kw)
+    assert kernels.launches["backtrack"] == 2
+    for key in BT_KEYS:
+        assert torch.equal(got[key], ref[key]), key
+    assert bool((clk > 0).all())
+    with pytest.raises(ValueError):
+        backtrack_compact(*args, clock=clk[:4], **kw)
 
 
 def test_backtrack_kernel_shared_memory_limit(card):
     """Past the 227 KB a block may hold the wrapper refuses the shape;
-    the widest that fits runs and agrees with the plain walk."""
+    the widest that fits (A = 8192: its sort takes 8192 keys, one more
+    anchor doubles them) runs and agrees with the plain version."""
     from minigraph_tpu_torch.ops.backtrack import SMEM_LIMIT, walk_smem_bytes
-    A = 11000
-    assert walk_smem_bytes(A, 64) <= SMEM_LIMIT < walk_smem_bytes(A + 64, 64)
+    A = 8192
+    assert walk_smem_bytes(A, 64) <= SMEM_LIMIT < walk_smem_bytes(A + 1, 64)
     args = bt_planes(np.random.default_rng(5), 3, A)
     kw = dict(min_cnt=3, min_sc=40, max_drop=60, ucap=64)
     got = backtrack_compact(*args, **kw)
     ref = backtrack_compact_ref(*args, **kw)
     for key in BT_KEYS:
         assert torch.equal(got[key], ref[key]), key
-    wide = bt_planes(np.random.default_rng(6), 2, A + 64)
+    wide = bt_planes(np.random.default_rng(6), 2, A + 1)
     with pytest.raises(ValueError):
         backtrack_compact(*wide, **kw)
 
