@@ -105,8 +105,9 @@ Phases, in order; any failure exits non-zero:
    then bridged by the inline host engine: GAF bytes equal to the
    host-only run), counted a query bucket (<= 256, <= 1024, longer), and
    the gwfa kernel (csrc/gwfa.cu) bitwise against its plain version
-   (ops/gwfa.py gwfa_batch_ref) on one full chunk of 16 jobs a bucket,
-   timed; (b) phase 4's reads mapped with the pool on the card, (1) the
+   (ops/gwfa.py gwfa_batch_ref) on one full chunk of 16 jobs a bucket and on run
+   (b2)'s launch, timed, with each phase's share of its clock buffer's
+   cycles; (b) phase 4's reads mapped with the pool on the card, (1) the
    front pinned at share 0, one pool call a read, and (2) no front, one
    pool call a batch (GwfaBatchSink), each held to the host-only GAF
    bytes and printing the jobs, n_device (> 0), flagged, oversize, the
@@ -1320,7 +1321,11 @@ def wfa_exact_phase(ref, reps):
 class HarvestPool:
     """A GWFA pool that records the jobs the native hook harvests (mode
     1) and returns -2 for each, so the inline host engine bridges them
-    all (mode 2)."""
+    all (mode 2).  It names the card as its device, as the card's pool
+    does, so that the file loop keeps its route in this process (no fork
+    pool) even before the first CUDA call."""
+
+    device = torch.device("cuda")
 
     def __init__(self):
         self.jobs = []
@@ -1339,23 +1344,18 @@ class HarvestPool:
 def gwfa_kernel_check(gd, jobs, qcap, reps, J=None):
     """The gwfa kernel on J jobs (default one chunk of 16) against the
     plain version on the card, bitwise; events, CUDA-graph and plain
-    times, the bound from the plain run's counted work."""
+    times, each phase's share of the clock buffer's cycles, the bound
+    from the plain run's counted work."""
     from minigraph_tpu_torch.align.gwfa_device import J_BUCKET, WCAP
     from minigraph_tpu_torch.ops import gwfa as gw
     J = J_BUCKET if J is None else J
     args = gw.pack_jobs(jobs[:J], qcap, J, "cuda")
-    got = gw.gwfa_batch(gd, *args)
     counts = {}
     t0 = time.perf_counter()
     ref = gw.gwfa_batch_ref(gd, *args, counts=counts)
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     keys = ("s", "flags", "walk", "n_walk")
-    err = max_abs_err([got[k] for k in keys], [ref[k] for k in keys])
-    if err:
-        raise AssertionError(f"gwfa kernel differs at qcap {qcap}: {err}")
-    ms = cuda_time(lambda: gw.gwfa_batch(gd, *args), reps)
-    graph_ms = graph_time(lambda: gw.gwfa_batch(gd, *args), reps)
     # bytes: the query and the job fields in, the compared graph bases
     # (int32, as the JAX layout keeps them), the outputs
     nbytes = 4 * (J * qcap + 6 * J + counts["ext"] + J * (3 + WCAP))
@@ -1364,14 +1364,34 @@ def gwfa_kernel_check(gd, jobs, qcap, reps, J=None):
     b_ms, b_by = bound(nbytes, ops)
     n = min(len(jobs), J)
     flags = ref["flags"].cpu().tolist()[:n]
-    log(f"gwfa ({J}, {qcap}): bitwise equal, {n} jobs "
-        f"({sum(f == 0 for f in flags)} unflagged, "
-        f"{int((ref['s'][:n] >= 0).sum())} found, flags {flags}); kernel "
-        f"{ms:.4f} ms ({graph_ms:.4f} ms replayed from a CUDA graph), plain "
-        f"{plain:.1f} ms, bound {b_ms:.5f} ms ({b_by}: {counts['states']} "
-        f"states, {counts['ext']} compares)")
+    log(f"gwfa ({J}, {qcap}): {n} jobs ({sum(f == 0 for f in flags)} "
+        f"unflagged, {int((ref['s'][:n] >= 0).sum())} found, flags "
+        f"{flags}); plain {plain:.1f} ms, bound {b_ms:.5f} ms ({b_by}: "
+        f"{counts['states']} states, {counts['ext']} compares)")
+    got = gw.gwfa_batch(gd, *args)
+    err = max_abs_err([got[k] for k in keys], [ref[k] for k in keys])
+    if err:
+        raise AssertionError(f"gwfa kernel differs at qcap {qcap}: {err}")
+    ms = cuda_time(lambda: gw.gwfa_batch(gd, *args), reps)
+    graph_ms = graph_time(lambda: gw.gwfa_batch(gd, *args), reps)
+    clk = torch.zeros((J, gw.CLK_N), dtype=torch.int64, device="cuda")
+    timed = gw.gwfa_batch(gd, *args, clock=clk)
+    if max_abs_err([timed[k] for k in keys], [ref[k] for k in keys]):
+        raise AssertionError("the clock buffer changed the gwfa outputs")
+    cyc = clk.to(torch.float64)
+    tot = float(cyc[:, :len(gw.CLK_PHASES)].sum())
+    if not tot > 0:
+        raise AssertionError("the gwfa clock buffer is empty")
+    share = {p: round(float(cyc[:, i].sum()) / tot, 4)
+             for i, p in enumerate(gw.CLK_PHASES)}
+    col = {c: float(cyc[:, i].sum()) for i, c in enumerate(gw.CLK_COLUMNS)}
+    log(f"  bitwise equal; kernel {ms:.4f} ms ({graph_ms:.4f} ms replayed "
+        f"from a CUDA graph); cycles {int(tot)} over the jobs, shares "
+        + ", ".join(f"{p} {v:.3f}" for p, v in share.items())
+        + f"; {col['syncs'] / col['waves']:.1f} synchronisations a wave")
     return {"max_abs_err": err, "ms": ms, "graph_ms": graph_ms,
-            "plain_ms": plain, "bound_ms": b_ms, "bound_by": b_by}
+            "cycle_share": share, "plain_ms": plain, "bound_ms": b_ms,
+            "bound_by": b_by}
 
 
 def gwfa_map_run(gi, mo, reads_fa, front):
@@ -1395,15 +1415,13 @@ def gwfa_map_run(gi, mo, reads_fa, front):
     return buf.getvalue(), st, pool, dict(kernels.launches)
 
 
-def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
-    """Phase 9: (a) the harvest and the kernel checks, (b) the two pool
-    routes.  Returns (the 256 bucket's kernel numbers, the launches of
-    run (b1))."""
-    from minigraph_tpu_torch.align.gwfa_device import (J_BUCKET,
-                                                       DeviceGwfaPool,
-                                                       QCAP_BUCKETS)
+def gwfa_harvest(gi, mo, reads_fa, host_gaf):
+    """Phase 9 (a)'s harvest: the bridge jobs of the reads, recorded
+    through the native hook (mode 1) while the inline host engine
+    bridges them all; the GAF bytes held to the host-only run.  Returns
+    (every job, the jobs of each query bucket, seconds)."""
+    from minigraph_tpu_torch.align.gwfa_device import QCAP_BUCKETS
     from minigraph_tpu_torch.mapping.mapper import map_reads
-    from minigraph_tpu_torch.tools.synth import bridge_jobs
     t0 = time.perf_counter()
     harvest = HarvestPool()
     buf = io.StringIO()
@@ -1411,34 +1429,56 @@ def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
     if buf.getvalue() != host_gaf:
         raise AssertionError("GAF of the harvest run differs at line "
                              f"{first_diff(buf.getvalue(), host_gaf)}")
-    lens = np.array([len(j[0]) for j in harvest.jobs])
     per = [[j for j in harvest.jobs if lo < len(j[0]) <= hi]
            for lo, hi in zip((0,) + QCAP_BUCKETS[:-1], QCAP_BUCKETS)]
-    log(f"phase 9 (a) harvest (hook mode 1, host engine bridges): GAF "
-        f"bytes equal to the host-only run, {len(lens)} bridge jobs in "
-        f"{time.perf_counter() - t0:.1f} s: {len(per[0])} of <= 256 bp, "
-        f"{len(per[1])} of 257-1024 bp, {int((lens > 1024).sum())} "
-        f"longer, {int((lens == 0).sum())} empty (longest "
-        f"{int(lens.max()) if len(lens) else 0})")
-    # one full chunk a bucket: the harvested jobs, topped up with
-    # bridge-shaped jobs on the same graph (tools/synth.py)
+    return harvest.jobs, per, time.perf_counter() - t0
+
+
+def gwfa_chunks(gi, per):
+    """One full chunk of 16 jobs a query bucket, (jobs, qcap, number
+    harvested): the bucket's harvested jobs, topped up with bridge-shaped
+    jobs on the same graph (tools/synth.py, seed 53)."""
+    from minigraph_tpu_torch.align.gwfa_device import J_BUCKET, QCAP_BUCKETS
+    from minigraph_tpu_torch.tools.synth import bridge_jobs
     rng = np.random.default_rng(53)
-    res = []
-    gd = DeviceGwfaPool(gi, device="cuda").graph()
+    out = []
     for jobs, lo, qcap in zip(per, (0,) + QCAP_BUCKETS[:-1], QCAP_BUCKETS):
         n_h = min(len(jobs), J_BUCKET)
         jobs = jobs[:J_BUCKET]
         while len(jobs) < J_BUCKET:
             jobs += [j for j in bridge_jobs(gi.g, gi.es, rng, 64, 8, qcap)
                      if len(j[0]) > lo][: J_BUCKET - len(jobs)]
+        out.append((jobs, qcap, n_h))
+    return out
+
+
+def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
+    """Phase 9: (a) the harvest and the kernel checks, (b) the two pool
+    routes.  Returns (the kernel's numbers at the 256 bucket's chunk,
+    the others beside them; the launches of run (b1))."""
+    from minigraph_tpu_torch.align.gwfa_device import (J_BUCKET,
+                                                       DeviceGwfaPool,
+                                                       QCAP_BUCKETS)
+    jobs, per, sec = gwfa_harvest(gi, mo, reads_fa, host_gaf)
+    lens = np.array([len(j[0]) for j in jobs])
+    log(f"phase 9 (a) harvest (hook mode 1, host engine bridges): GAF "
+        f"bytes equal to the host-only run, {len(lens)} bridge jobs in "
+        f"{sec:.1f} s: {len(per[0])} of <= 256 bp, "
+        f"{len(per[1])} of 257-1024 bp, {int((lens > 1024).sum())} "
+        f"longer, {int((lens == 0).sum())} empty (longest "
+        f"{int(lens.max()) if len(lens) else 0})")
+    res = []
+    gd = DeviceGwfaPool(gi, device="cuda").graph()
+    for jobs, qcap, n_h in gwfa_chunks(gi, per):
         log(f"gwfa chunk of bucket {qcap}: {n_h} harvested jobs, "
             f"{J_BUCKET - n_h} synthetic")
         res.append(gwfa_kernel_check(gd, jobs, qcap, reps=5))
     # the launch shape of run (b2): every harvested job of the 256 bucket
     # in one batch, padded to a multiple of 16
     if len(per[0]) > J_BUCKET:
-        gwfa_kernel_check(gd, per[0], QCAP_BUCKETS[0], reps=3,
-                          J=J_BUCKET * -(-len(per[0]) // J_BUCKET))
+        res.append(gwfa_kernel_check(
+            gd, per[0], QCAP_BUCKETS[0], reps=3,
+            J=J_BUCKET * -(-len(per[0]) // J_BUCKET)))
 
     launches = None
     for name, front in (("(b1) front pinned, one pool call a read", True),
@@ -1472,7 +1512,7 @@ def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
         log(run_line(f"run 9 {name}", st, n_reads))
         if launches is None:
             launches = lc
-    return res[0], launches
+    return {**res[0], "wider": res[1:]}, launches
 
 
 def ggen_phase(ref, gfa, work, reads_fa, n_reads):

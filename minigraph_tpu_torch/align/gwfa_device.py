@@ -18,7 +18,8 @@ import time
 import numpy as np
 import torch
 
-from ..ops.gwfa import build_device_graph, gwfa_batch, pack_jobs
+from ..ops.gwfa import (build_device_graph, gwfa_batch, gwfa_launch,
+                        out_views, pack_jobs)
 from ..utils.syslog import mlog
 
 WCAP = 64
@@ -66,13 +67,15 @@ class DeviceGwfaPool:
 
     def _solve(self, rows, qcap, J):
         """One gwfa_batch call, timed into kernel_ms and batch_ms;
-        returns its outputs as numpy arrays."""
+        returns its outputs as numpy arrays.  On the card the jobs go
+        over in one copy (pack_jobs) and the four outputs come back in
+        one (the kernel's one buffer)."""
         gd = self.graph()
         launch = []
         if self._stream is None:
             t0 = time.perf_counter()
             res = gwfa_batch(gd, *pack_jobs(rows, qcap, J, self.device),
-                             degcap=DEGCAP, timing=launch)
+                             degcap=DEGCAP, wcap=WCAP, timing=launch)
             self.batch_ms += (time.perf_counter() - t0) * 1e3
             self.kernel_ms += sum(launch)
             return {key: v.numpy() for key, v in res.items()}
@@ -81,9 +84,11 @@ class DeviceGwfaPool:
             e0 = torch.cuda.Event(enable_timing=True)
             e1 = torch.cuda.Event(enable_timing=True)
             e0.record()
-            res = gwfa_batch(gd, *args, degcap=DEGCAP, timing=launch)
+            out = gwfa_launch(gd, *args, degcap=DEGCAP, wcap=WCAP,
+                              timing=launch)
             e1.record()
-            res = {key: v.cpu().numpy() for key, v in res.items()}
+            res = {key: v.numpy()
+                   for key, v in out_views(out.cpu(), J, WCAP).items()}
         self.batch_ms += e0.elapsed_time(e1)
         self.kernel_ms += sum(k0.elapsed_time(k1) for k0, k1 in launch)
         return res

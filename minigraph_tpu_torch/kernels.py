@@ -59,7 +59,7 @@ KERNELS = {
                  "pppp" + "i" * 12 + "ppppp"),
     "wfa_walk": ("wfa_exact.cu", "mgt_cuda_wfa_walk",
                  "p" * 8 + "i" * 10 + "ppp"),
-    "gwfa": ("gwfa.cu", "mgt_cuda_gwfa", "p" * 13 + "i" * 12 + "pppp"),
+    "gwfa": ("gwfa.cu", "mgt_cuda_gwfa", "p" * 13 + "i" * 12 + "pp"),
 }
 
 launches = {name: 0 for name in KERNELS}

@@ -23,7 +23,8 @@ clamps here.  Its sorts are stable, where lax.sort is not: rows that tie
 on every key are BIG pads or same-(vd, k) candidates, and between those
 only tainted lineages differ (tests/test_torch_gwfa.py holds the two on
 fuzzed jobs).  `gwfa_batch` runs it for CPU tensors and launches the
-CUDA kernel (csrc/gwfa.cu, one block a job) for tensors on the card.
+CUDA kernel (csrc/gwfa.cu, a block of 256 threads a job) for tensors on
+the card.
 """
 from __future__ import annotations
 
@@ -51,6 +52,13 @@ F_HOP = 16       # cross-vertex hop chain longer than hopcap
 F_FCAP = 32      # forbidden-band / visited table overflow
 F_STEPS = 128    # hit the static step cap before max_ed was exhausted
 
+# the kernel's clock buffer, a row a job: cycles a phase, then its
+# synchronisations, waves (steps plus hop waves) and steps, and the
+# cycles of the dedup phase's grouping (its hash table or its sort)
+CLK_COLUMNS = ("ext", "child", "event", "forb", "dedup", "walk", "syncs",
+               "waves", "steps", "dedup_group")
+CLK_PHASES = CLK_COLUMNS[:6]
+CLK_N = len(CLK_COLUMNS)
 
 
 class GwfaGraph(NamedTuple):
@@ -92,18 +100,34 @@ def pack_jobs(jobs, qcap: int, J: Optional[int] = None, device="cpu"):
     """(q, ql, v0, off0, v1, off1, max_ed) tensors of the kernel from
     jobs (query bytes, v0, off0, v1, off1, max_ed), padded to J rows
     (default len(jobs)) with one-base jobs at vertex 0 that change no
-    real job's result."""
+    real job's result.  The seven are views of one int32 buffer (the
+    (J, qcap) queries, then the six job fields of J each), filled on the
+    host, in pinned memory for a card, and moved in one copy."""
     J = len(jobs) if J is None else J
-    q = np.full((J, qcap), -1, dtype=np.int32)
-    cols = np.zeros((6, J), dtype=np.int32)
+    dev = torch.device(device)
+    host = torch.empty(J * (qcap + 6), dtype=I32,
+                       pin_memory=dev.type == "cuda")
+    a = host.numpy()
+    q = a[: J * qcap].reshape(J, qcap)
+    cols = a[J * qcap:].reshape(6, J)
+    q.fill(-1)
+    cols.fill(0)
     cols[0] = 1
     for i, (qb, v0, off0, v1, off1, max_ed) in enumerate(jobs):
         if len(qb) > qcap:
             raise ValueError(f"job {i}: query of {len(qb)} > qcap {qcap}")
         q[i, : len(qb)] = np.frombuffer(qb, dtype=np.uint8)
         cols[:, i] = (len(qb), v0, off0, v1, off1, max_ed)
-    return (torch.from_numpy(q).to(device),
-            *(torch.from_numpy(c).to(device) for c in cols))
+    buf = host.to(dev, non_blocking=True)
+    return (buf[: J * qcap].view(J, qcap),
+            *buf[J * qcap:].view(6, J).unbind(0))
+
+
+def out_views(flat, J: int, wcap: int):
+    """The kernel's four outputs as views of its one int32 buffer of J *
+    (3 + wcap): s, flags and n_walk (J each), then the (J, wcap) walks."""
+    return {"s": flat[:J], "flags": flat[J: 2 * J],
+            "n_walk": flat[2 * J: 3 * J], "walk": flat[3 * J:].view(J, wcap)}
 
 
 # ----------------------------------------------------------------------
@@ -593,28 +617,55 @@ def gwfa_batch_ref(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
 
 def gwfa_batch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
                dcap=256, ccap=2048, tcap=512, fcap=512, wcap=64, degcap=6,
-               hopcap=16, evcap=128, max_steps=256, timing=None):
+               hopcap=16, evcap=128, max_steps=256, timing=None,
+               clock=None):
     """GWFA for a batch of bridge jobs: the plain version for CPU
-    tensors, the `gwfa` kernel (csrc/gwfa.cu, one block a job) for
-    tensors on the card.  Returns the dict of `gwfa_batch_ref`.  Caps
-    whose job state passes a block's shared memory (~107 KB at the
-    defaults, 227 KB at most) fail at the launch (RuntimeError).
+    tensors, the `gwfa` kernel (`gwfa_launch`) for tensors on the card.
+    Returns the dict of `gwfa_batch_ref`; on the card its tensors are
+    `out_views` of the kernel's one output buffer.
 
     `timing`, a list, receives the time of the launch alone: the pair of
-    CUDA events recorded on the current stream just before and after it
-    on the card, the host milliseconds of the plain version on the CPU.
-    An empty batch launches nothing and appends nothing."""
+    CUDA events of `gwfa_launch` on the card, the host milliseconds of
+    the plain version on the CPU.  An empty batch launches nothing and
+    appends nothing.  `clock`: as in `gwfa_launch`; refused on the
+    CPU."""
     caps = dict(dcap=dcap, ccap=ccap, tcap=tcap, fcap=fcap, wcap=wcap,
                 degcap=degcap, hopcap=hopcap, evcap=evcap,
                 max_steps=max_steps)
     if q.device.type == "cpu":
+        if clock is not None:
+            raise ValueError("the clock buffer is the CUDA kernel's")
         t0 = time.perf_counter()
         res = gwfa_batch_ref(gd, q, ql, v0, off0, v1, off1, max_ed, **caps)
         if timing is not None and q.shape[0]:
             timing.append((time.perf_counter() - t0) * 1e3)
         return res
+    out = gwfa_launch(gd, q, ql, v0, off0, v1, off1, max_ed, **caps,
+                      timing=timing, clock=clock)
+    return out_views(out, q.shape[0], wcap)
+
+
+def gwfa_launch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
+                dcap=256, ccap=2048, tcap=512, fcap=512, wcap=64, degcap=6,
+                hopcap=16, evcap=128, max_steps=256, timing=None,
+                clock=None):
+    """The `gwfa` kernel (csrc/gwfa.cu, a block of 256 threads a job) on
+    a batch of jobs on the card.  Returns its one int32 output buffer of
+    J * (3 + wcap) (`out_views` splits it), so that the caller can copy
+    all four outputs back at once.  Caps whose job state passes a
+    block's shared memory (~113 KB at the defaults, 227 KB at most) fail
+    at the launch (RuntimeError).
+
+    `timing`, a list, receives the pair of CUDA events recorded on the
+    current stream just before and after the launch.  `clock`: None, or
+    a (J, CLK_N) int64 tensor on the card that takes each job's
+    CLK_COLUMNS: clock64() cycles a phase, its synchronisations, waves
+    and steps; no entry point passes it."""
     J, QCAP = q.shape
     jobs = (ql, v0, off0, v1, off1, max_ed)
+    if q.device.type != "cuda":
+        raise ValueError("gwfa_launch runs the CUDA kernel: the jobs must "
+                         "be on the card")
     if q.dtype != I32 or any(x.shape != (J,) or x.dtype != I32
                              for x in jobs):
         raise ValueError("q must be (J, QCAP) int32, the job fields (J,) "
@@ -627,19 +678,20 @@ def gwfa_batch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
     if dcap < evcap or ccap < dcap or evcap * degcap < dcap:
         raise ValueError("the caps need evcap <= dcap <= min(ccap, evcap * "
                          "degcap), as in the JAX kernel")
-    from .. import kernels
-    dev = q.device
-    s = torch.empty(J, dtype=I32, device=dev)
-    flags = torch.empty(J, dtype=I32, device=dev)
-    walk = torch.empty((J, wcap), dtype=I32, device=dev)
-    n_walk = torch.empty(J, dtype=I32, device=dev)
+    if clock is not None and (clock.shape != (J, CLK_N)
+                              or clock.dtype != I64
+                              or clock.device != q.device):
+        raise ValueError(f"clock must be a (J, {CLK_N}) int64 tensor on "
+                         "the jobs' device")
+    out = torch.empty(J * (3 + wcap), dtype=I32, device=q.device)
     if J == 0:
         # nothing to launch, so nothing to count
-        return {"s": s, "flags": flags, "walk": walk, "n_walk": n_walk}
+        return out
+    from .. import kernels
     args = (q.contiguous(), *(x.contiguous() for x in jobs),
             *(x.contiguous() for x in gd), J, QCAP, gd.arc_cnt.shape[0],
             dcap, ccap, tcap, fcap, wcap, degcap, hopcap, evcap, max_steps,
-            s, flags, walk, n_walk)
+            out, clock)
     if timing is None:
         kernels.launch("gwfa", *args)
     else:
@@ -649,4 +701,4 @@ def gwfa_batch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
         kernels.launch("gwfa", *args)
         e1.record()
         timing.append((e0, e1))
-    return {"s": s, "flags": flags, "walk": walk, "n_walk": n_walk}
+    return out

@@ -20,20 +20,23 @@ reads twice through that tree's `chip_smoke.device_run` (the split
 pinned at share 0), reporting the second run's stage ms.  This process
 then checks that every run gave the same backtrack outputs and the same
 GAF bytes, and prints one JSON line a run and the card's name and power
-limit.  Needs one CUDA card; exits non-zero without one.
+limit (tools/_treecompare.py runs the trees).  Needs one CUDA card;
+exits non-zero without one.
 """
 from __future__ import annotations
 
-import argparse
 import hashlib
-import json
-import subprocess
 import sys
 from pathlib import Path
 
 import torch
 
-ROOT = Path(__file__).resolve().parents[2]
+try:
+    from . import _treecompare as tc
+except ImportError:         # run as a script, as each tree's worker is
+    import _treecompare as tc
+
+ROOT = tc.ROOT
 BUCKETS = (2048, 8192, 32768)
 OUT_KEYS = ("c_axh", "c_axl", "c_ayh", "c_ayl", "u_sc", "u_cnt", "n_u",
             "n_v", "bt_unsure", "steps")
@@ -134,54 +137,22 @@ def worker(tree: Path, work: Path, tag: str, reps: int) -> dict:
             "gaf_bytes": len(gaf)}
 
 
-def main(argv=None) -> int:
-    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
-    ap.add_argument("trees", nargs="*", type=Path)
-    ap.add_argument("--out", type=Path, default=ROOT / "build" / "btcompare")
-    ap.add_argument("--reps", type=int, default=20)
-    ap.add_argument("--worker", type=Path, help=argparse.SUPPRESS)
-    ap.add_argument("--tag", default="0", help=argparse.SUPPRESS)
-    a = ap.parse_args(argv)
-    if not torch.cuda.is_available():
-        sys.stderr.write("btcompare: no CUDA device\n")
-        return 1
-    if a.worker is not None:
-        print(json.dumps(worker(a.worker.resolve(), a.out, a.tag, a.reps)))
-        return 0
-    if not a.trees:
-        ap.error("give at least one tree")
-    a.out.mkdir(parents=True, exist_ok=True)
-    make_inputs(a.out)
-    results = []
-    for i, tree in enumerate(a.trees):
-        tag = str(i)
-        # the file runs as a script, so that a tree without this tool
-        # can be timed: the worker imports the tree's own package
-        r = subprocess.run(
-            [sys.executable, str(Path(__file__).resolve()), "--worker",
-             str(tree.resolve()), "--out", str(a.out.resolve()), "--tag",
-             tag, "--reps", str(a.reps)], cwd=tree, capture_output=True,
-            text=True)
-        if r.returncode != 0:
-            sys.stderr.write(r.stdout[-4000:] + r.stderr[-8000:])
-            raise RuntimeError(f"run {i} on {tree} failed")
-        res = json.loads(r.stdout.strip().splitlines()[-1])
-        results.append(res)
-        print(json.dumps(res), flush=True)
-    first = torch.load(a.out / "out_0.pt")
+def check(results, work: Path) -> str:
+    """Every run's backtrack outputs and GAF bytes against run 0's."""
+    first = torch.load(work / "out_0.pt")
     for i, res in enumerate(results[1:], 1):
-        outs = torch.load(a.out / f"out_{i}.pt")
+        outs = torch.load(work / f"out_{i}.pt")
         for s0, s1 in zip(first, outs):
             bad = [k for k in OUT_KEYS if not torch.equal(s0[k], s1[k])]
             if bad:
                 raise AssertionError(f"run {i} differs from run 0: {bad}")
         if res["gaf_sha256"] != results[0]["gaf_sha256"]:
             raise AssertionError(f"run {i}: GAF bytes differ from run 0")
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True).stdout.strip()
-    print(f"every run: the same backtrack outputs and GAF bytes; {smi}")
-    return 0
+    return "the same backtrack outputs and GAF bytes"
+
+
+def main(argv=None) -> int:
+    return tc.main(argv, __file__, __doc__, make_inputs, worker, check)
 
 
 if __name__ == "__main__":

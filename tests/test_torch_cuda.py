@@ -889,14 +889,17 @@ def gwfa_jobs(graph, seed, qcap, n=16):
 
 
 def gwfa_check(graph, jobs, qcap, J=None, degcap=6, **caps):
+    """The kernel on the jobs packed for the card (one launch), bitwise
+    against the plain version on the CPU."""
     from minigraph_tpu_torch.ops import gwfa as gw
     g, es = graph
     gd, _ = gw.build_device_graph(g, es, degcap)
     args = gw.pack_jobs(jobs, qcap, J)
     want = gw.gwfa_batch_ref(gd, *args, degcap=degcap, **caps)
+    gdc = gd.to("cuda")
+    cargs = gw.pack_jobs(jobs, qcap, J, device="cuda")
     n0 = kernels.launches["gwfa"]
-    got = gw.gwfa_batch(gd.to("cuda"), *(x.cuda() for x in args),
-                        degcap=degcap, **caps)
+    got = gw.gwfa_batch(gdc, *cargs, degcap=degcap, **caps)
     torch.cuda.synchronize()
     assert kernels.launches["gwfa"] == n0 + 1
     for key in ("s", "flags", "walk", "n_walk"):
@@ -951,6 +954,35 @@ def test_gwfa_kernel_padded_batch(card, gwfa_graphs):
     assert kernels.launches["gwfa"] == n0
 
 
+def test_gwfa_kernel_eighty_jobs(card, gwfa_graphs):
+    """An 80-job launch at QCAP 256, the shape of the pool's one call a
+    batch, with one job a pad."""
+    want = gwfa_check(gwfa_graphs["g"], gwfa_jobs(gwfa_graphs["g"], 80,
+                                                  256, 79), 256, J=80)
+    assert int((want["flags"] == 0).sum()) >= 40
+
+
+def test_gwfa_kernel_clock(card, gwfa_graphs):
+    """The clock buffer leaves the outputs as they are and takes each
+    job's phase cycles, synchronisations and waves."""
+    from minigraph_tpu_torch.ops import gwfa as gw
+    g, es = gwfa_graphs["g"]
+    gd, _ = gw.build_device_graph(g, es)
+    gd = gd.to("cuda")
+    args = gw.pack_jobs(gwfa_jobs(gwfa_graphs["g"], 14, 256), 256,
+                        device="cuda")
+    want = gw.gwfa_batch(gd, *args)
+    clk = torch.zeros((16, gw.CLK_N), dtype=torch.int64, device="cuda")
+    got = gw.gwfa_batch(gd, *args, clock=clk)
+    for key in ("s", "flags", "walk", "n_walk"):
+        assert torch.equal(got[key], want[key]), key
+    col = {c: clk[:, i].cpu() for i, c in enumerate(gw.CLK_COLUMNS)}
+    assert bool((sum(col[p] for p in gw.CLK_PHASES) > 0).all())
+    assert bool((col["steps"] >= 1).all())
+    assert bool((col["waves"] >= col["steps"]).all())
+    assert bool((col["syncs"] > 0).all())
+
+
 def test_gwfa_kernel_high_degree(card, gwfa_graphs):
     """A vertex of degree 8 at degcap 6 (F_DEG) and at degcap 8."""
     from minigraph_tpu_torch.tools.synth import bridge_jobs
@@ -965,7 +997,8 @@ def test_gwfa_kernel_high_degree(card, gwfa_graphs):
 
 def test_gwfa_pool_kernel_time_on_card(card, gwfa_graphs):
     """The pool's kernel_ms times the launch alone, inside batch_ms (the
-    wrapper call around it): 0 < kernel_ms <= batch_ms."""
+    wrapper call around it): 0 < kernel_ms <= batch_ms; its results
+    (jobs over in one copy, outputs back in one) equal a CPU pool's."""
     from minigraph_tpu_torch.align.gwfa_device import DeviceGwfaPool
     g, es = gwfa_graphs["g"]
 
@@ -981,9 +1014,14 @@ def test_gwfa_pool_kernel_time_on_card(card, gwfa_graphs):
         q += qb
     pool = DeviceGwfaPool(gi, device="cuda")
     n0 = kernels.launches["gwfa"]
-    pool.run(np.asarray(rows, dtype=np.int64), q.decode("latin-1"))
+    rows = np.asarray(rows, dtype=np.int64)
+    got = pool.run(rows, q.decode("latin-1"))
     assert kernels.launches["gwfa"] - n0 == pool.n_batches == 2
     assert 0 < pool.kernel_ms <= pool.batch_ms
+    # the one-copy round trip gives the plain version's results
+    want = DeviceGwfaPool(gi, device="cpu").run(rows, q.decode("latin-1"))
+    for a, b in zip(got, want):
+        assert np.array_equal(a, b)
 
 
 # ---- the chunk-halo sweep (index/midx_device.py) on K1

@@ -6,8 +6,9 @@ flags, walk, n_walk) for bridge-shaped jobs on a 300 kb bubble graph
 mutation rates 3, 8 and 25 in both query buckets, and at reduced caps
 that make every capacity flag fire on both sides; unflagged jobs against
 the exact host engine (align/gwfa_exact.py gwfa_ed); and a per-job model
-of the CUDA kernel's schedule (csrc/gwfa.cu: one job at a time, ordered
-appends with caps, total-order sorts that break ties by position,
+of the CUDA kernel's schedule (csrc/gwfa.cu, a block of NT threads a
+job: team appends by ballot and popcount with caps, the kernel's
+sorting networks under total orders that break ties by position,
 sorted-set merges cut at their caps, the walk on one thread) held
 against the plain version.  The JAX side compiles each cap set once
 (~8 s).  Tolerance: exact equality."""
@@ -158,15 +159,109 @@ def test_unflagged_match_host_engine(graphs):
         assert n_exact >= len(jobs) // 2, (name, n_exact)
 
 
+NT = 256         # csrc/gwfa.cu's threads a job
+
+
+def popc(x):
+    return bin(x).count("1")
+
+
+def team_append(items, count, cap, NT):
+    """csrc/gwfa.cu Team::append over per-position items (None where the
+    predicate is false): chunks of NT positions, a ballot of the
+    predicates, each item's slot the count so far plus the popcount of
+    the lanes below it.  Returns ([(slot, item)], the count capped, and
+    whether a slot reached the cap)."""
+    out, c, over = [], count, False
+    for base in range(0, len(items), NT):
+        chunk = items[base: base + NT]
+        mask = sum(1 << lane for lane, it in enumerate(chunk)
+                   if it is not None)
+        for lane, it in enumerate(chunk):
+            if it is not None:
+                out.append((c + popc(mask & ((1 << lane) - 1)), it))
+        over |= c + popc(mask) > cap
+        c += popc(mask)
+    return out, min(c, cap), over
+
+
+def team_append_same(items, count, cap, NT, npass):
+    """Team::append_same: npass passes of one predicate; on one chunk
+    one ballot serves them all (pass a's slots after a * tot), else the
+    passes run one after the other.  Returns ([(slot, pass, item)],
+    count, over)."""
+    if len(items) > NT:
+        out, over = [], False
+        for a in range(npass):
+            o, count, ov = team_append(items, count, cap, NT)
+            out += [(slot, a, it) for slot, it in o]
+            over |= ov
+        return out, count, over
+    mask = sum(1 << lane for lane, it in enumerate(items) if it is not None)
+    tot = popc(mask)
+    out = [(count + a * tot + popc(mask & ((1 << lane) - 1)), a, it)
+           for lane, it in enumerate(items) if it is not None
+           for a in range(npass)]
+    c = count + npass * tot
+    return out, min(c, cap), c > cap
+
+
+def rank_sort_model(keys):
+    """The kernel's rank sort: each entry's slot is the count of smaller
+    keys (the keys are unique: each ends in its position)."""
+    out = [None] * len(keys)
+    for x in keys:
+        out[sum(y < x for y in keys)] = x
+    assert None not in out
+    return out
+
+
+def bitonic_model(keys, pad, NT):
+    """Team::bitonic: the shared-memory network over the next power of
+    two, pads last; one thread a pair, NT at a time (the order of a
+    stage's exchanges does not matter: they touch disjoint pairs)."""
+    n = len(keys)
+    p2 = 1 << max(0, (n - 1).bit_length())
+    a = list(keys) + [pad] * (p2 - n)
+    k = 2
+    while k <= p2:
+        j = k >> 1
+        while j > 0:
+            for i in range(p2):
+                ixj = i ^ j
+                if ixj > i:
+                    x, y = a[i], a[ixj]
+                    if (y < x) if (i & k) == 0 else (x < y):
+                        a[i], a[ixj] = y, x
+            j >>= 1
+        k <<= 1
+    return a[:n]
+
+
+def team_sort(keys, NT, pad):
+    """The kernel's sort of one array of unique keys: by rank up to RMAX
+    = 2 NT entries, else the shared-memory bitonic network."""
+    if len(keys) <= 2 * NT:
+        return rank_sort_model(keys)
+    return bitonic_model(keys, pad, NT)
+
+
 def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
               tcap=512, fcap=512, wcap=64, degcap=6, hopcap=16, evcap=128,
               max_steps=256):
-    """One job as csrc/gwfa.cu runs it (one block a job): the frontier,
-    the hop waves and the candidates as lists in push order, ordered
-    appends with caps, total-order sorts (ties broken by position),
-    sorted-set merges cut at their caps, the walk on one thread."""
+    """One job as csrc/gwfa.cu runs it on a block of NT threads: the
+    frontier, the hop waves, the candidates, the trace and the events in
+    the kernel's arrays; every append a team append (ballot and popcount
+    a chunk, the three re-interior passes from one ballot); the
+    candidates grouped by vd where the kernel's hash table holds them
+    (else all sorted); the events, the staged forbidden set and the
+    groups sorted as the kernel sorts them (by rank up to RMAX, else its
+    bitonic network) under its total orders; sorted-set merges cut at
+    their caps; the walk on one thread."""
     arc_w, arc_ow, arc_cnt, seq_off, seq_len, seq = G
     n = len(arc_cnt)
+    BIGK = (1 << 63) - 1
+    IMAX = (1 << 31) - 1
 
     def cv_(v):
         return min(max(v, 0), n - 1)
@@ -201,18 +296,22 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
     tr_pre = [-1] * tcap
     tr_n = 1
     while not (found or dead) and flags == 0:
-        C = []
+        C = [None] * ccap
+        n_c = 0
         stage = []
         nf_n = 0
         vis = []
 
         def push(items):
-            nonlocal flags
-            for it in items:
-                if len(C) < ccap:
-                    C.append(it)
-                else:
-                    flags |= F_DCAP
+            """A candidate append; items per position, None where the
+            predicate is false."""
+            nonlocal flags, n_c
+            out, n_c, over = team_append(items, n_c, ccap, NT)
+            for slot, it in out:
+                if slot < ccap:
+                    C[slot] = it
+            if over:
+                flags |= F_DCAP
 
         def stage_add(vd):
             nonlocal nf_n
@@ -243,8 +342,8 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
                 ck, ct, cn = k + 1, t, tn
             if has_r[p] and A[p + 1][1] + 1 >= ck:
                 ck, ct, cn = A[p + 1][1] + 1, A[p + 1][2], A[p + 1][3]
-            if d + ck < ql and ck < vl:
-                out.append((vd, ck, ct, cn))
+            out.append((vd, ck, ct, cn) if d + ck < ql and ck < vl
+                       else None)
             if ck == vl:
                 stage_add(vd)
         push(out)
@@ -252,21 +351,19 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
         for p, (vd, k, t, tn) in enumerate(A):
             vl = seq_len[vv(vd)]
             d = dd(vd)
-            if not has_l[p]:
-                if (d - 1) + (k + 1) < ql and k + 1 < vl:
-                    out.append((vd - 1, k + 1, t, tn))
-                if k + 1 == vl:
-                    stage_add(vd - 1)
+            out.append((vd - 1, k + 1, t, tn) if not has_l[p]
+                       and (d - 1) + (k + 1) < ql and k + 1 < vl else None)
+            if not has_l[p] and k + 1 == vl:
+                stage_add(vd - 1)
         push(out)
         out = []
         for p, (vd, k, t, tn) in enumerate(A):
             vl = seq_len[vv(vd)]
             d = dd(vd)
-            if not has_r[p]:
-                if (d + 1) + k < ql and k < vl:
-                    out.append((vd + 1, k, t, tn))
-                if k == vl:
-                    stage_add(vd + 1)
+            out.append((vd + 1, k, t, tn) if not has_r[p]
+                       and (d + 1) + k < ql and k < vl else None)
+            if not has_r[p] and k == vl:
+                stage_add(vd + 1)
         push(out)
 
         # hop waves: B = (vd, k, t, tn, act)
@@ -282,15 +379,21 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
                 P.append(dict(vd=vd, v=v, d=d, k=k, t=t, tn=tn, act=act,
                               vlh=vlh, cnt=arc_cnt[vc], i=i, vc=vc,
                               vend0=k == vlh - 1, qend0=i == ql - 1))
-            # (a) re-interior states
-            for ddd, kk in ((-1, 1), (0, 1), (1, 0)):
-                push([(mk(x["v"], x["d"] + ddd), x["k"] + kk, x["t"],
-                       x["tn"]) for x in P
-                      if x["act"] and not x["vend0"] and not x["qend0"]])
-            # (b) target at query end: the first hit in position order
             for x in P:
                 x["qend"] = x["act"] and x["qend0"]
                 x["hit"] = x["qend"] and x["v"] == v1 and x["k"] == off1
+            # (a) re-interior states: three passes from one ballot
+            out, n_c, over = team_append_same(
+                [x if x["act"] and not x["vend0"] and not x["qend0"]
+                 else None for x in P], n_c, ccap, NT, 3)
+            for slot, a, x in out:
+                if slot < ccap:
+                    C[slot] = (mk(x["v"], x["d"] + a - 1),
+                               x["k"] + (1 if a < 2 else 0), x["t"],
+                               x["tn"])
+            if over:
+                flags |= F_DCAP
+            # (b) target at query end: the first hit in position order
             hits = [x for x in P if x["hit"]]
             if hits and not found:
                 end_t, end_v, end_tn = hits[0]["t"], hits[0]["v"], \
@@ -299,94 +402,94 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
             for x in P:
                 x["qd"] = (x["qend"] and not x["hit"]
                            and x["k"] + 1 < x["vlh"] and not found)
-            push([(mk(x["v"], x["d"] - 1), x["k"] + 1, x["t"], x["tn"])
-                  for x in P if x["qd"]])
-            # (c) trace pushes, the forbidden stage, degree
-            for x in P:
                 x["vend"] = (x["act"] and x["vend0"] and not x["qend0"]
                              and not found)
                 x["qv"] = (x["qend"] and not x["hit"] and not x["qd"]
                            and x["v"] != v1 and not found)
                 x["tw"] = x["t"]
-                if x["vend"] or x["qv"]:
-                    if tr_n < tcap:
-                        tr_v[tr_n] = x["v"]
-                        tr_pre[tr_n] = x["t"]
-                        x["tw"] = tr_n
-                        tr_n += 1
-                    else:
-                        flags |= F_TCAP
-                        x["tw"] = tcap - 1
                 if x["vend"]:
                     stage_add(x["vd"])
-                    if x["cnt"] > degcap:
-                        flags |= F_DEG
-            # (d) events of the first evcap vend states
-            cvl = [p for p, x in enumerate(P) if x["vend"]]
-            if len(cvl) > evcap:
+                if (x["vend"] or x["qv"]) and x["cnt"] > degcap:
+                    flags |= F_DEG
+            push([(mk(x["v"], x["d"] - 1), x["k"] + 1, x["t"], x["tn"])
+                  if x["qd"] else None for x in P])
+            # (c) trace pushes; past tcap a state's trace index is tcap - 1
+            out, tr_n, over = team_append(
+                [x if x["vend"] or x["qv"] else None for x in P], tr_n,
+                tcap, NT)
+            for slot, x in out:
+                if slot < tcap:
+                    tr_v[slot] = x["v"]
+                    tr_pre[slot] = x["t"]
+                    x["tw"] = slot
+                else:
+                    x["tw"] = tcap - 1
+            if over:
+                flags |= F_TCAP
+            # (d) events of the first evcap vend states, degcap a state
+            out, n_cv, over = team_append(
+                [p if x["vend"] else None for p, x in enumerate(P)], 0,
+                evcap, NT)
+            if over:
                 flags |= F_DCAP
-            cvl = cvl[:evcap]
+            cvp = [p for slot, p in out if slot < evcap]
             for x in P:
                 x["n_ext"] = 0
-            evs = []      # (key, ord, p, ai, m)
-            for p in cvl:
+            evs = []      # (key, p, w, ow, m) in event index order
+            for p in cvp:
                 x = P[p]
-                for ai in range(min(x["cnt"], degcap)):
-                    w = arc_w[x["vc"]][ai]
-                    ow = arc_ow[x["vc"]][ai]
-                    m = (x["i"] + 1 < ql and ow < seq_len[w]
-                         and seq[seq_off[w] + ow] == q[x["i"] + 1])
-                    x["n_ext"] += m
-                    evs.append(((w << 32) | (x["i"] + 1), p * degcap + ai,
-                                p, ai, m, w, ow))
-            evs.sort(key=lambda e: (e[0], e[1]))
-            heads = [j for j in range(len(evs))
-                     if j == 0 or evs[j][0] != evs[j - 1][0]]
-            act = {}
-            for j in heads:
-                key = evs[j][0]
-                ps = bisect_left(vis, key)
-                if not (ps < len(vis) and vis[ps] == key):
-                    act[j] = True
-            new_keys = [evs[j][0] for j in sorted(act)]
+                for ai in range(degcap):
+                    if ai < x["cnt"]:
+                        w = arc_w[x["vc"]][ai]
+                        ow = arc_ow[x["vc"]][ai]
+                        m = (x["i"] + 1 < ql and ow < seq_len[w]
+                             and seq[seq_off[w] + ow] == q[x["i"] + 1])
+                        x["n_ext"] += m
+                        evs.append(((w << 32) | (x["i"] + 1), p, w, ow, m))
+                    else:
+                        evs.append((BIGK, p, 0, 0, False))
+            srt = [e for _, e in team_sort(
+                [(ev[0], e) for e, ev in enumerate(evs)], NT, (BIGK, IMAX))]
+            act = [False] * len(evs)
+            for jj, e in enumerate(srt):
+                key = evs[e][0]
+                if key != BIGK and (jj == 0 or evs[srt[jj - 1]][0] != key):
+                    ps = bisect_left(vis, key)
+                    act[e] = not (ps < len(vis) and vis[ps] == key)
+            new_keys = [evs[e][0] for e in srt if act[e]]
             union = sorted(vis + new_keys)
             if len(union) > 2 * dcap:
                 flags |= F_FCAP
             vis = union[:2 * dcap]
-            na = sorted((evs[j] for j in act if evs[j][4]),
-                        key=lambda e: e[1])
-            if len(na) > dcap:
+            # matching winners become the next wave, in event order
+            out, _, over = team_append(
+                [ev if act[e] and ev[4] else None
+                 for e, ev in enumerate(evs)], 0, dcap, NT)
+            if over:
                 flags |= F_DCAP
-            na = na[:dcap]
-            newB = [(mk(e[5], P[e[2]]["i"] + 1 - e[6]), e[6],
-                     P[e[2]]["tw"], P[e[2]]["tn"]) for e in na]
+            newB = [(mk(ev[2], P[ev[1]]["i"] + 1 - ev[3]), ev[3],
+                     P[ev[1]]["tw"], P[ev[1]]["tn"])
+                    for slot, ev in out if slot < dcap]
+            # mismatching winners: two cross-vertex children, sorted order
             for ddd in (0, 1):
-                out = []
-                for j in range(len(evs)):
-                    if j in act and not evs[j][4]:
-                        e = evs[j]
-                        x = P[e[2]]
-                        ch_d = x["i"] + ddd - e[6]
-                        if ch_d + e[6] < ql:
-                            out.append((mk(e[5], ch_d), e[6], x["tw"],
-                                        x["tn"]))
-                push(out)
+                items = []
+                for e in srt:
+                    ev = evs[e]
+                    x = P[ev[1]]
+                    ch_d = x["i"] + ddd - ev[3]
+                    items.append((mk(ev[2], ch_d), ev[3], x["tw"], x["tn"])
+                                 if act[e] and not ev[4]
+                                 and ch_d + ev[3] < ql else None)
+                push(items)
             push([(mk(x["v"], x["d"] + 1), x["k"], x["t"], x["tn"])
-                  for x in P if x["vend"] and (
-                      x["cnt"] == 0
-                      or x["n_ext"] != min(x["cnt"], degcap))])
+                  if x["vend"] and (x["cnt"] == 0
+                                    or x["n_ext"] != min(x["cnt"], degcap))
+                  else None for x in P])
             # (e) query end at a non-target vertex end: one child an arc
             for ai in range(degcap):
-                out = []
-                for x in P:
-                    if x["qv"] and ai < x["cnt"]:
-                        w = arc_w[x["vc"]][ai]
-                        ow = arc_ow[x["vc"]][ai]
-                        out.append((mk(w, x["i"] - ow), ow, x["tw"],
-                                    x["tn"]))
-                push(out)
-            if any(x["qv"] and x["cnt"] > degcap for x in P):
-                flags |= F_DEG
+                push([(mk(arc_w[x["vc"]][ai], x["i"] - arc_ow[x["vc"]][ai]),
+                       arc_ow[x["vc"]][ai], x["tw"], x["tn"])
+                      if x["qv"] and ai < x["cnt"] else None for x in P])
             # next wave
             B = [(vd, extend(vd, k), t, tn, not found)
                  for vd, k, t, tn in newB]
@@ -396,9 +499,12 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
 
         if nf_n > 4 * dcap and not found:
             flags |= F_FCAP
-        new = sorted(set(stage))
+        srt = [v for v, _ in team_sort(
+            [(v, i) for i, v in enumerate(stage)], NT, (BIGK, IMAX))]
         fs = set(forb)
-        union = sorted(forb + [x for x in new if x not in fs])
+        new = [x for i, x in enumerate(srt)
+               if (i == 0 or x != srt[i - 1]) and x not in fs]
+        union = sorted(forb + new)
         if len(union) > fcap and not found:
             flags |= F_FCAP
         forb = union[:fcap]
@@ -406,24 +512,53 @@ def model_job(G, q, ql, v0, off0, v1, off1, max_ed, dcap=256, ccap=2048,
         n_keep = 0
         if not found and flags == 0:
             fs = set(forb)
-            cand = [(c[0], c[1], c[2], c[3], j) for j, c in enumerate(C)
-                    if c[0] not in fs]
-            cand.sort(key=lambda c: (c[0], -c[1], c[4]))
-            j = 0
-            while j < len(cand):
-                e = j
-                while e < len(cand) and cand[e][0] == cand[j][0]:
-                    e += 1
-                runk, runt = cand[j][1], cand[j][2]
-                taint = any(c[2] != runt and (c[1] == runk or not had_a)
-                            for c in cand[j:e])
-                nxt.append((cand[j][0], cand[j][1], cand[j][2],
-                            cand[j][3] | int(taint)))
-                j = e
-            n_keep = len(nxt)
-            if n_keep > dcap:
+            out, _, _ = team_append(
+                [j if C[j][0] not in fs else None for j in range(n_c)], 0,
+                n_c, NT)
+            nc = len(out)
+            hcap = 1
+            while 2 * hcap <= 4 * dcap:
+                hcap *= 2
+            if 0 < nc and 1 << (2 * nc - 1).bit_length() <= hcap:
+                # the hash table: groups by vd, the winner the largest
+                # (k, -position), the taint against the winner, then the
+                # groups sorted by vd
+                groups = {}
+                for _, j in out:
+                    groups.setdefault(C[j][0], []).append(j)
+                for vd, _ in team_sort([(vd, i) for i, vd in
+                                        enumerate(groups)], NT, (BIGK, IMAX)):
+                    js = groups[vd]
+                    w = max(js, key=lambda j: (C[j][1], -j))
+                    taint = any(C[j][2] != C[w][2]
+                                and (C[j][1] == C[w][1] or not had_a)
+                                for j in js)
+                    nxt.append((vd, C[w][1], C[w][2], C[w][3] | int(taint)))
+                n_keep, over = min(len(nxt), dcap), len(nxt) > dcap
+                nxt = nxt[:dcap]
+            else:
+                # the sort: (vd asc, k desc, position), run heads win
+                cand = [(vd, -nk, C[j][2], C[j][3], j)
+                        for vd, nk, j in bitonic_model(
+                            [(C[j][0], -C[j][1], j) for _, j in out],
+                            (BIGK, 1 << 31, IMAX), NT)]
+                heads = [jj if jj == 0 or cand[jj][0] != cand[jj - 1][0]
+                         else None for jj in range(len(cand))]
+                out, n_keep, over = team_append(heads, 0, dcap, NT)
+                for slot, jj in out:
+                    if slot >= dcap:
+                        continue
+                    e = jj
+                    while e < len(cand) and cand[e][0] == cand[jj][0]:
+                        e += 1
+                    runk, runt = cand[jj][1], cand[jj][2]
+                    taint = any(c[2] != runt and (c[1] == runk or not had_a)
+                                for c in cand[jj:e])
+                    nxt.append((cand[jj][0], cand[jj][1], cand[jj][2],
+                                cand[jj][3] | int(taint)))
+            if over:
                 flags |= F_DCAP
-        A = nxt[:dcap]
+        A = nxt
         if not found and n_keep == 0:
             dead = True
         if not (found or dead) and flags == 0:
