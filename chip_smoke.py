@@ -98,8 +98,10 @@ Phases, in order; any failure exits non-zero:
    wfa_wave and wfa_walk on gap pairs of 256-2048 bp cut from the 5 Mb
    reference: one full chunk a bucket bitwise against the plain
    versions (tb on the rows below each score; the walk on the kernel's
-   and the plain tb), timed, and the CIGARs of 4096 pairs against the
-   native host engine's;
+   and the plain tb), timed, with each kernel's clock buffer split (the
+   slowest pair's cycles in the wave, extension, end test and barrier;
+   the walk's cycles, steps and tb reads), and the CIGARs of 4096 pairs
+   against the native host engine's;
 9. the device GWFA bridge pool (--gwfa-device): (a) the bridge jobs of
    phase 4's reads harvested through the native hook (mode 1, every job
    then bridged by the inline host engine: GAF bytes equal to the
@@ -112,7 +114,8 @@ Phases, in order; any failure exits non-zero:
    pool call a batch (GwfaBatchSink), each held to the host-only GAF
    bytes and printing the jobs, n_device (> 0), flagged, oversize, the
    kernel's launches, the pool's kernel_ms (the launches alone) inside
-   its batch_ms (the wrapper calls) and reads/s;
+   its batch_ms (the wrapper calls) and reads/s, and for (1) kernel_ms
+   beside the 16-job chunk's graph time x launches;
 10. graph generation on the host: -cxggs -l10k on the phase 4 graph
    with two make_haplotype samples cut into contigs (the segments and
    arcs it adds, > 0), -xasm --call -l10k of a third sample on the new
@@ -1251,6 +1254,23 @@ def wfa_exact_phase(ref, reps):
         ms_wave, g_wave = cuda_time(wave, reps), graph_time(wave, reps)
         ms_walk, g_walk = cuda_time(walk, reps), graph_time(walk, reps)
         B, L = enc[0].shape
+        # the clock buffers' split (the slowest pair of each kernel)
+        cw = torch.zeros((B, len(wx.WAVE_CLK)), dtype=torch.int64,
+                         device="cuda")
+        ck = torch.zeros((B, len(wx.WALK_CLK)), dtype=torch.int64,
+                         device="cuda")
+        wx.wfa_device(*enc, PENS, d_cap=lmax, s_cap=s_cap, tb=tb, clock=cw)
+        wx.wfa_tb_walk(*enc, tb, score, end_d, no_ext, PENS, d_cap=lmax,
+                       t_cap=t_cap, clock=ck)
+        for name, clk, cols in (("wfa_wave", cw, wx.WAVE_CLK),
+                                ("wfa_walk", ck, wx.WALK_CLK)):
+            cyc, n = (clk[:, cols.index(c)].cpu() for c in ("cycles",
+                                                             "steps"))
+            row = clk[int(cyc.argmax())].tolist()
+            log(f"{name} clock at L={lmax}, the slowest pair: "
+                + ", ".join(f"{c} {v}" for c, v in zip(cols, row))
+                + f"; {int(cyc.sum()) / max(1, int(n.sum())):.1f} cycles "
+                f"a step over all pairs")
         D = 2 * lmax + 1
         # wave: the sequences in, tb rows below each score and 9 bytes a
         # pair out; ~20 integer operations a wave cell, 3 a compare
@@ -1509,6 +1529,13 @@ def gwfa_phase(gi, mo, reads_fa, host_gaf, n_reads):
             raise AssertionError(f"phase 9 {name}: kernel_ms "
                                  f"{pool.kernel_ms} outside batch_ms "
                                  f"{pool.batch_ms}")
+        if front:
+            # the window of each launch's events holds the bare ctypes
+            # call alone (kernels.bind); its device time is the chunk's
+            g = res[0]["graph_ms"]
+            log(f"phase 9 {name}: kernel_ms {pool.kernel_ms:.4f} against "
+                f"the 16-job chunk's graph time x launches "
+                f"{g * lc['gwfa']:.4f} ms ({g:.4f} x {lc['gwfa']})")
         log(run_line(f"run 9 {name}", st, n_reads))
         if launches is None:
             launches = lc

@@ -58,7 +58,7 @@ KERNELS = {
     "wfa_wave": ("wfa_exact.cu", "mgt_cuda_wfa_wave",
                  "pppp" + "i" * 12 + "ppppp"),
     "wfa_walk": ("wfa_exact.cu", "mgt_cuda_wfa_walk",
-                 "p" * 8 + "i" * 10 + "ppp"),
+                 "p" * 8 + "i" * 10 + "pppp"),
     "gwfa": ("gwfa.cu", "mgt_cuda_gwfa", "p" * 13 + "i" * 12 + "pp"),
 }
 
@@ -148,11 +148,15 @@ def _load():
     return _lib
 
 
-def launch(name: str, *args) -> None:
-    """Launch kernel `name` on the current stream.  Tensor arguments
+def bind(name: str, *args):
+    """Kernel `name`'s launch with its arguments converted: a function of
+    no arguments that starts the kernel on the stream that was current
+    here, counts it and raises if the launch fails.  Tensor arguments
     must already be on the card, contiguous and of the kernel's type
-    (the ops wrappers check that); None passes a null pointer.  Raises
-    if the launch fails."""
+    (the ops wrappers check that); None passes a null pointer.  A caller
+    that times the launch alone records its first event after binding,
+    so that the conversion (Python, which waits for the GIL under other
+    threads) stays outside the window."""
     _, entry, sig = KERNELS[name]
     if len(args) != len(sig):
         raise TypeError(f"{name}: expected {len(sig)} arguments")
@@ -167,8 +171,18 @@ def launch(name: str, *args) -> None:
             conv.append(a.data_ptr())
         else:
             conv.append(a)
-    stream = torch.cuda.current_stream().cuda_stream
-    err = getattr(_load(), entry)(*conv, stream)
-    if err != 0:
-        raise RuntimeError(f"{name} kernel launch failed: CUDA error {err}")
-    launches[name] += 1
+    conv.append(torch.cuda.current_stream().cuda_stream)
+    fn = getattr(_load(), entry)
+
+    def call() -> None:
+        err = fn(*conv)
+        if err != 0:
+            raise RuntimeError(f"{name} kernel launch failed: CUDA error "
+                               f"{err}")
+        launches[name] += 1
+    return call
+
+
+def launch(name: str, *args) -> None:
+    """Launch kernel `name` on the current stream (`bind`, then call)."""
+    bind(name, *args)()

@@ -657,10 +657,11 @@ def gwfa_launch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
     at the launch (RuntimeError).
 
     `timing`, a list, receives the pair of CUDA events recorded on the
-    current stream just before and after the launch.  `clock`: None, or
-    a (J, CLK_N) int64 tensor on the card that takes each job's
-    CLK_COLUMNS: clock64() cycles a phase, its synchronisations, waves
-    and steps; no entry point passes it."""
+    current stream just before and after the launch: around the bare
+    ctypes call, its arguments converted before (`kernels.bind`).
+    `clock`: None, or a (J, CLK_N) int64 tensor on the card that takes
+    each job's CLK_COLUMNS: clock64() cycles a phase, its
+    synchronisations, waves and steps; no entry point passes it."""
     J, QCAP = q.shape
     jobs = (ql, v0, off0, v1, off1, max_ed)
     if q.device.type != "cuda":
@@ -692,13 +693,14 @@ def gwfa_launch(gd: GwfaGraph, q, ql, v0, off0, v1, off1, max_ed,
             *(x.contiguous() for x in gd), J, QCAP, gd.arc_cnt.shape[0],
             dcap, ccap, tcap, fcap, wcap, degcap, hopcap, evcap, max_steps,
             out, clock)
+    call = kernels.bind("gwfa", *args)
     if timing is None:
-        kernels.launch("gwfa", *args)
+        call()
     else:
         e0 = torch.cuda.Event(enable_timing=True)
         e1 = torch.cuda.Event(enable_timing=True)
         e0.record()
-        kernels.launch("gwfa", *args)
+        call()
         e1.record()
         timing.append((e0, e1))
     return out

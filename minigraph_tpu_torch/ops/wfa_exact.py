@@ -21,7 +21,12 @@ NEG_INF = -0x40000000 sentinel, to which the recurrences add 1 a step
 The kernels stop each pair at its own end, where the JAX loop (and the
 plain version) run the batch until every pair is done: they write no tb
 row at or past a pair's score, the only rows the walk never reads.
-score, end_d, no_ext, the ops trace and fin_i/fin_k are whole.
+score, end_d, no_ext, the ops trace and fin_i/fin_k are whole.  The
+wave kernel keeps a pair's whole ring in shared memory as int16: a
+reachable k >= -1 as it is, NEG_INF + d (the drift) as NEG16 + d, an
+encoding that keeps order, max and +1 while the two zones stay apart;
+`ring16_bytes` refuses the shapes where they could meet or the ring
+would not fit a block.
 """
 from __future__ import annotations
 
@@ -36,6 +41,9 @@ U8 = torch.uint8
 T_PAD, Q_PAD = 254, 255     # distinct pads: padding never matches
 PAD = 8                     # pad columns past the longest sequence
 EXT_CHECK = 8               # extension rounds between "any extended?" tests
+# the kernels' clock buffer columns (csrc/wfa_exact.cu), one row a pair
+WAVE_CLK = ("ext", "end", "wave", "steps", "ext_iter", "cycles")
+WALK_CLK = ("cycles", "steps", "tb_reads")
 
 
 def encode_pairs(pairs: Sequence[Tuple[bytes, bytes]],
@@ -64,6 +72,51 @@ def _ring_depths(pens) -> Tuple[int, int, int]:
     pe1 back, E2/F2 pe2 back."""
     px, po1, pe1, po2, pe2 = pens
     return max(px, po1 + pe1, po2 + pe2) + 1, pe1 + 1, pe2 + 1
+
+
+# the wfa_wave kernel's ring: int16 in shared memory
+NEG16 = -32768              # NEG_INF in the int16 encoding
+SMEM_MAX = 232448 - 64      # a block's shared memory on an H100, less
+#                             the kernel's static words
+
+
+def ring_stride(D: int) -> int:
+    """int16 slots of a ring row: D diagonals (diagonal j at slot j + 2),
+    two pads each side, 16-byte rows (csrc/wfa_exact.cu ring_stride)."""
+    return (D + 4 + 7) & ~7
+
+
+def seq_stride(L: int) -> int:
+    """Bytes a staged sequence takes in shared memory, with the slack
+    the 8-byte compares read past it (csrc/wfa_exact.cu seq_stride)."""
+    return ((L + 15) & ~15) + 16
+
+
+def ring16_bytes(pens, L: int, d_cap: int, s_cap: int) -> int:
+    """Shared memory bytes of a wfa_wave block: the int16 ring of
+    `_ring_depths` rows, the two staged sequences and a value a ring row
+    for the edgeless plane's waves.  Raises ValueError
+    where the kernel cannot hold the pair exactly: a penalty below 1 (px,
+    pe1, pe2) or 0 (po1, po2); a reachable k (at most L - 1 + s_cap)
+    past 32767 or a drifted NEG_INF (NEG_INF + s_cap at most) that could
+    meet -1 (L + s_cap > 32767); or a block past SMEM_MAX."""
+    px, po1, pe1, po2, pe2 = (int(v) for v in pens)
+    if min(px, pe1, pe2) < 1 or min(po1, po2) < 0:
+        raise ValueError(f"wfa_wave needs px, pe1, pe2 >= 1 and po1, po2 "
+                         f">= 0, not {tuple(pens)}")
+    if L + s_cap > 32767:
+        raise ValueError(f"wfa_wave's int16 ring needs L + s_cap <= 32767 "
+                         f"(L={L}, s_cap={s_cap})")
+    dh, de1, de2 = _ring_depths(pens)
+    rows = dh + 2 * de1 + 2 * de2
+    # the ring, the sequences, the edgeless plane's waves (a value a row)
+    nbytes = rows * ring_stride(2 * d_cap + 1) * 2 + 2 * seq_stride(L) \
+        + 2 * rows
+    if nbytes > SMEM_MAX:
+        raise ValueError(f"wfa_wave's ring takes {nbytes} bytes of shared "
+                         f"memory at d_cap={d_cap}, L={L}, pens "
+                         f"{tuple(pens)}: more than {SMEM_MAX}")
+    return nbytes
 
 
 def wfa_device_ref(ts, tl, qs, ql, pens, d_cap: int, s_cap: int,
@@ -276,16 +329,36 @@ def _check_pairs(ts, tl, qs, ql):
     return B, L
 
 
-def wfa_device(ts, tl, qs, ql, pens, d_cap: int, s_cap: int, tb=None):
+def _check_clock(clock, B, cols, dev):
+    if clock is not None and (clock.shape != (B, len(cols))
+                              or clock.dtype != torch.int64
+                              or clock.device != dev):
+        raise ValueError(f"clock must be a ({B}, {len(cols)}) int64 tensor "
+                         f"on {dev}")
+
+
+def wfa_device(ts, tl, qs, ql, pens, d_cap: int, s_cap: int, tb=None,
+               clock=None):
     """Align B encoded pairs (`encode_pairs`): the plain version for CPU
     tensors, the `wfa_wave` kernel for tensors on the card, which writes
     into `tb` when given (a (s_cap, B, D) uint8 plane reused across
     calls) and holds tb rows only below each pair's score.  Returns
-    (score, tb, done, end_d, no_ext) as `wfa_device_ref`."""
+    (score, tb, done, end_d, no_ext) as `wfa_device_ref`.  The sequence
+    lengths must be at most L (`encode_pairs` makes them so); shapes
+    `ring16_bytes` refuses raise ValueError.  `clock`: None, or a (B,
+    len(WAVE_CLK)) int64 tensor on the card that takes each pair's
+    WAVE_CLK columns, clock64() cycles summed over its steps: in
+    extension (the extensions that ended after the step's slowest wave),
+    in the end test and the barrier, in the wave (from the barrier until
+    its slowest thread ended); the steps, the extension iterations
+    (8-byte compares) of all threads and the pair's cycles in all; no
+    entry point passes it."""
     if ts.device.type == "cpu":
         return wfa_device_ref(ts, tl, qs, ql, pens, d_cap, s_cap)
     B, L = _check_pairs(ts, tl, qs, ql)
     D = 2 * d_cap + 1
+    _check_clock(clock, B, WAVE_CLK, ts.device)
+    ring16_bytes(pens, L, d_cap, s_cap)
     if tb is None:
         tb = torch.empty((s_cap, B, D), dtype=U8, device=ts.device)
     elif tb.shape != (s_cap, B, D) or tb.dtype != U8 \
@@ -294,24 +367,26 @@ def wfa_device(ts, tl, qs, ql, pens, d_cap: int, s_cap: int, tb=None):
                          f"{ts.device}")
     from .. import kernels
     dh, de1, de2 = _ring_depths(pens)
-    ring = torch.empty((B, (dh + 2 * de1 + 2 * de2) * D), dtype=I32,
-                       device=ts.device)
     score = torch.empty((B,), dtype=I32, device=ts.device)
     end_d = torch.empty((B,), dtype=I32, device=ts.device)
     no_ext = torch.empty((B,), dtype=torch.bool, device=ts.device)
     px, po1, pe1, po2, pe2 = (int(v) for v in pens)
+    if clock is not None:
+        clock.zero_()
     kernels.launch("wfa_wave", ts.contiguous(), qs.contiguous(),
                    tl.to(I32).contiguous(), ql.to(I32).contiguous(), B, L,
                    d_cap, s_cap, px, po1, pe1, po2, pe2, dh, de1, de2,
-                   ring, tb, score, end_d, no_ext)
+                   tb, score, end_d, no_ext, clock)
     return score, tb, score >= 0, end_d, no_ext
 
 
 def wfa_tb_walk(ts, tl, qs, ql, tb, score, end_d, no_ext, pens,
-                d_cap: int, t_cap: int):
+                d_cap: int, t_cap: int, clock=None):
     """The traceback walk: the plain version for CPU tensors, the
-    `wfa_walk` kernel (one thread a pair) for tensors on the card.
-    Returns (ops, fin_i, fin_k) as `wfa_tb_walk_ref`."""
+    `wfa_walk` kernel (one warp a pair) for tensors on the card.
+    Returns (ops, fin_i, fin_k) as `wfa_tb_walk_ref`.  `clock`: None, or
+    a (B, len(WALK_CLK)) int64 tensor on the card that takes each pair's
+    cycles, steps and tb reads; no entry point passes it."""
     if ts.device.type == "cpu":
         return wfa_tb_walk_ref(ts, tl, qs, ql, tb, score, end_d, no_ext,
                                pens, d_cap, t_cap)
@@ -319,6 +394,10 @@ def wfa_tb_walk(ts, tl, qs, ql, tb, score, end_d, no_ext, pens,
     S, _, D = tb.shape
     if tb.shape != (S, B, 2 * d_cap + 1) or tb.dtype != U8:
         raise ValueError("tb must be (S, B, 2 d_cap + 1) uint8")
+    _check_clock(clock, B, WALK_CLK, ts.device)
+    if 2 * seq_stride(L) > SMEM_MAX:
+        raise ValueError(f"wfa_walk stages 2 x {seq_stride(L)} bytes of "
+                         f"sequence: more than {SMEM_MAX}")
     from .. import kernels
     ops = torch.zeros((t_cap, B), dtype=U8, device=ts.device)
     fin_i = torch.empty((B,), dtype=I32, device=ts.device)
@@ -329,7 +408,7 @@ def wfa_tb_walk(ts, tl, qs, ql, tb, score, end_d, no_ext, pens,
                    tb.contiguous(), score.to(I32).contiguous(),
                    end_d.to(I32).contiguous(), no_ext.contiguous(), B, L,
                    S, d_cap, t_cap, px, po1, pe1, po2, pe2, ops, fin_i,
-                   fin_k)
+                   fin_k, clock)
     return ops, fin_i, fin_k
 
 

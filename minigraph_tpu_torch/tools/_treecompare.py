@@ -1,6 +1,6 @@
 """The runner the compare tools share (tools/btcompare.py,
-tools/gwcompare.py): time one kernel of several source trees on one
-card, in turns, on the same inputs.
+tools/gwcompare.py, tools/wxcompare.py): time one kernel of several
+source trees on one card, in turns, on the same inputs.
 
 A tool hands `main` three functions.  make_inputs(work) writes the
 inputs into the directory `work` with this checkout's package.

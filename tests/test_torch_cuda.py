@@ -834,6 +834,67 @@ def test_wfa_exact_kernels_edges(card):
         wx.wfa_device(*enc, pens, d_cap=64, s_cap=200, tb=got[1][:10])
 
 
+def test_wfa_exact_kernels_clock_and_budget(card):
+    """At the widest bucket's D = 4097: unrelated 2048 bp sequences whose
+    score reaches s_cap (the ring's drift at its deepest) beside gap
+    pairs, against the plain versions; then the clock buffers, which
+    leave every output as it was: a pair's steps are its score + 1 (all
+    s_cap where the budget ran out), its phases fit in its cycles, the
+    walk's steps are its ops and its tb reads at most its steps + 1."""
+    from minigraph_tpu_torch.ops import wfa_exact as wx
+    pens, lmax, s_cap = (4, 4, 2, 15, 1), 2048, 600
+    rng = np.random.default_rng(61)
+    acgt = np.frombuffer(b"ACGT", np.uint8)
+    far = [(rng.choice(acgt, lmax).tobytes(), rng.choice(acgt, lmax)
+            .tobytes()) for _ in range(2)]
+    pairs = far + wfa_gap_pairs(rng, 6, 700, 2048)
+    enc = wx.encode_pairs(pairs, L=lmax, device="cuda")
+    got = wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=s_cap)
+    ref = wx.wfa_device_ref(*enc, pens, d_cap=lmax, s_cap=s_cap)
+    for i in (0, 2, 3, 4):
+        assert torch.equal(got[i], ref[i]), i
+    score = got[0].cpu()
+    assert (score[:2] < 0).all() and (score[2:] >= 0).any()
+    for b in range(len(pairs)):
+        n = int(score[b]) if score[b] >= 0 else s_cap
+        assert torch.equal(got[1][:n, b], ref[1][:n, b]), b
+    t_cap = 2 * lmax + 4
+    walk = wx.wfa_tb_walk(*enc, got[1], got[0], got[3], got[4], pens,
+                          d_cap=lmax, t_cap=t_cap)
+    want = wx.wfa_tb_walk_ref(*enc, ref[1], ref[0], ref[3], ref[4], pens,
+                              d_cap=lmax, t_cap=t_cap)
+    for a, b in zip(walk, want):
+        assert torch.equal(a, b)
+    B = len(pairs)
+    cw = torch.full((B, len(wx.WAVE_CLK)), -7, dtype=torch.int64,
+                    device="cuda")
+    ck = torch.zeros((B, len(wx.WALK_CLK)), dtype=torch.int64,
+                     device="cuda")
+    again = wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=s_cap, tb=got[1],
+                          clock=cw)
+    for i in (0, 3, 4):
+        assert torch.equal(again[i], got[i]), i
+    walk2 = wx.wfa_tb_walk(*enc, got[1], got[0], got[3], got[4], pens,
+                           d_cap=lmax, t_cap=t_cap, clock=ck)
+    for a, b in zip(walk2, walk):
+        assert torch.equal(a, b)
+    cw, ck = cw.cpu(), ck.cpu()
+    c = {n: cw[:, i] for i, n in enumerate(wx.WAVE_CLK)}
+    steps = torch.where(score >= 0, score + 1, torch.full_like(score, s_cap))
+    assert torch.equal(c["steps"], steps.long())
+    assert (c["cycles"] > 0).all() and (c["ext_iter"] > 0).all()
+    assert (c["ext"] + c["end"] + c["wave"] <= c["cycles"]).all()
+    k = {n: ck[:, i] for i, n in enumerate(wx.WALK_CLK)}
+    assert torch.equal(k["steps"], (walk[0].cpu() > 0).sum(0).long())
+    assert (k["tb_reads"] <= k["steps"] + 1).all()
+    assert (k["cycles"][score >= 0] > 0).all()
+    with pytest.raises(ValueError):
+        wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=s_cap, clock=cw.cuda()
+                      [:, :3])
+    with pytest.raises(ValueError):         # the int16 ring's limit
+        wx.wfa_device(*enc, pens, d_cap=lmax, s_cap=32767)
+
+
 def test_gap_pool_on_card_matches_cpu(card):
     """DeviceWfaPool on the card against the same pool on the CPU (its
     plain versions), result for result, with the launches counted."""
