@@ -1,0 +1,9 @@
+"""Device: the share of the traced window in which no kernel, copy or
+memset ran (100 x (1 - their union / the window))."""
+
+
+def read(ctx):
+    tr = ctx.get("trace")
+    if not tr or tr["window_s"] <= 0 or tr["busy_s"] <= 0:
+        return None
+    return 100.0 * (1.0 - tr["busy_s"] / tr["window_s"])

@@ -1,0 +1,8 @@
+"""The benchmark's plain reference: minigraph's host path, frozen.
+
+A copy of the port's host-only mapping path (graph reader, minimizer
+index, native batch tail and its C sources) taken when the benchmark
+was defined, importing nothing of the port.  It maps every read of a
+file on the host and returns each read's GAF text, which the harness
+holds the port's output to, byte for byte.
+"""
