@@ -14,6 +14,7 @@ from typing import List, Optional
 import numpy as np
 
 from ..graph.gfa import Graph, revcomp
+from ..utils import trace
 from .sketch import sketch_many
 
 
@@ -98,7 +99,13 @@ def build_index(g: Graph, k: int, w: int, mo=None,
     """Index the graph (mg_index, index.c:186-230): uppercases segment
     sequences in place, sketches every segment, builds the flat table,
     and updates dynamic occurrence options.  With `cache`, unchanged
-    segments reuse their cached sketches (delta re-index)."""
+    segments reuse their cached sketches (delta re-index).  Timed as
+    the span setup.index."""
+    with trace.span("setup.index"):
+        return _build_index(g, k, w, mo, cache)
+
+
+def _build_index(g, k, w, mo, cache):
     if gfa_overlap(g):
         raise ValueError("graphs with overlapping segments are not supported")
     for s in g.seg:

@@ -33,7 +33,6 @@ for tensors on the card and their plain versions for tensors on the CPU.
 from __future__ import annotations
 
 import os
-import time
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -50,6 +49,7 @@ from ..ops.backtrack import backtrack_compact
 from ..ops.chain_chunked import lchain_dp_chunked
 from ..ops.chain_exact import lchain_dp_exact_win
 from ..ops.sketch import encode_batch, sketch_planes
+from ..utils import trace
 from .native_tail import chain_penalties
 
 U64 = np.uint64
@@ -112,34 +112,6 @@ def _unpack_ay(pk: np.ndarray) -> np.ndarray:
         | (pk & U64(0x1FFFF))
 
 
-class _StageTimer:
-    """Per-stage device time: CUDA events on the card (read back after
-    the batch's fetch has synchronised), a host clock on the CPU."""
-
-    def __init__(self, device: torch.device, stages=STAGES):
-        self.cuda = device.type == "cuda"
-        self.ms = {s: 0.0 for s in stages}
-        self._pending = []
-
-    def mark(self):
-        if self.cuda:
-            ev = torch.cuda.Event(enable_timing=True)
-            ev.record()
-            return ev
-        return time.perf_counter()
-
-    def add(self, stage, t0, t1):
-        if self.cuda:
-            self._pending.append((stage, t0, t1))
-        else:
-            self.ms[stage] += (t1 - t0) * 1e3
-
-    def settle(self):
-        for stage, e0, e1 in self._pending:
-            self.ms[stage] += e0.elapsed_time(e1)
-        self._pending.clear()
-
-
 class DeviceFront:
     """Batched on-device seed and chain stage with host fallback flags.
 
@@ -169,10 +141,17 @@ class DeviceFront:
             # is free here: cover max_occ and the truncation flag never
             # fires (occ_cap < cnt < max_occ)
             occ_cap = max(occ_cap, min(256, opt.occ_max1 + 1))
-            self.ji = HashJoinIndex.from_host(gi, occ_cap, self.device)
+            with trace.span("setup.front.tables"):     # the cuckoo build
+                arrays = HashJoinIndex.host_arrays(gi)
+            with trace.span("setup.front.upload"):
+                self.ji = HashJoinIndex.from_arrays(arrays, occ_cap,
+                                                    self.device)
             self.hashed = True
         else:
-            self.ji = JoinIndex.from_host(gi, occ_cap, self.device)
+            with trace.span("setup.front.tables"):
+                arrays = JoinIndex.host_arrays(gi, occ_cap)
+            with trace.span("setup.front.upload"):
+                self.ji = JoinIndex.from_arrays(arrays, self.device)
             self.hashed = False
         self.occ_cap = occ_cap
         self.buckets = sorted(buckets)
@@ -187,6 +166,9 @@ class DeviceFront:
         # loop (mapping/mapper.py) does not take that cost as the
         # device's steady cost
         self.last_submit_cold = False
+        # the pack's end event of the newest bucket batch submitted (None
+        # on the CPU): busy_mark reads it
+        self.last_end = None
         self._warm = set()
         # the -c gap pool of the Python reader loop (align/cigar_device.py
         # DeviceWfaPool), made by the loop at its first use
@@ -207,7 +189,7 @@ class DeviceFront:
         mdy = opt.max_gap
         self.mdx_adj = max(mdx, opt.bw)
         self.mdy_adj = max(mdy, opt.bw)
-        self.timer = _StageTimer(
+        self.timer = trace.StageTimer(
             self.device, STAGES if self.chain_enabled else SEED_STAGES)
 
     # ------------------------------------------------------------------
@@ -248,18 +230,21 @@ class DeviceFront:
         max_occ = int(opt.occ_max1)
         tm = self.timer
         t0 = tm.mark()
-        sp = sketch_planes(codes, lens, gi.w, gi.k)
-        t1 = tm.mark()
+        with trace.span("front.sketch"):
+            sp = sketch_planes(codes, lens, gi.w, gi.k)
+            t1 = tm.mark()
         tm.add("sketch", t0, t1)
         collect = collect_anchors_exact_hash if self.hashed \
             else collect_anchors_exact
-        res = collect(self.ji, sp.hh, sp.hl, sp.meta, sp.t_hh, sp.t_hl,
-                      sp.t_meta, max_occ, self.occ_cap, qcap=qcap,
-                      acap=acap)
-        overflow = res["overflow"] | sp.overflow
-        # cnt <= 255 decides every occurrence test (max_occ caps at 250)
-        q_cnt = torch.clamp(res["q_cnt"], 0, 255)
-        t2 = tm.mark()
+        with trace.span("front.collect"):
+            res = collect(self.ji, sp.hh, sp.hl, sp.meta, sp.t_hh, sp.t_hl,
+                          sp.t_meta, max_occ, self.occ_cap, qcap=qcap,
+                          acap=acap)
+            overflow = res["overflow"] | sp.overflow
+            # cnt <= 255 decides every occurrence test (max_occ caps at
+            # 250)
+            q_cnt = torch.clamp(res["q_cnt"], 0, 255)
+            t2 = tm.mark()
         tm.add("collect", t1, t2)
         if not self.chain_enabled:
             # seed-only: the raw anchor planes go to the host
@@ -274,20 +259,22 @@ class DeviceFront:
         chain = lchain_dp_chunked if (
             self.chain_chunked and opt.max_lc_iter >= win + min(128, acap)
             and win >= 128) else lchain_dp_exact_win
-        f, p, sure = chain(
-            res["axh"], res["axl"], res["ayh"], res["ayl"], res["n_a"],
-            int(self.mdx_adj), int(self.mdy_adj), int(opt.bw),
-            int(opt.max_lc_skip), int(opt.max_lc_iter), self.chn_pen_gap,
-            self.chn_pen_skip, window=win, tile=tile)
-        t3 = tm.mark()
+        with trace.span("front.chain"):
+            f, p, sure = chain(
+                res["axh"], res["axl"], res["ayh"], res["ayl"], res["n_a"],
+                int(self.mdx_adj), int(self.mdy_adj), int(opt.bw),
+                int(opt.max_lc_skip), int(opt.max_lc_iter),
+                self.chn_pen_gap, self.chn_pen_skip, window=win, tile=tile)
+            t3 = tm.mark()
         tm.add("chain", t2, t3)
-        bt = backtrack_compact(f, p, res["n_a"], res["axh"], res["axl"],
-                               res["ayh"], res["ayl"],
-                               min_cnt=int(opt.min_lc_cnt),
-                               min_sc=int(opt.min_lc_score),
-                               max_drop=int(opt.bw), ucap=UCAP)
-        sure = sure & ~bt["bt_unsure"]
-        t4 = tm.mark()
+        with trace.span("front.backtrack"):
+            bt = backtrack_compact(f, p, res["n_a"], res["axh"], res["axl"],
+                                   res["ayh"], res["ayl"],
+                                   min_cnt=int(opt.min_lc_cnt),
+                                   min_sc=int(opt.min_lc_score),
+                                   max_drop=int(opt.bw), ucap=UCAP)
+            sure = sure & ~bt["bt_unsure"]
+            t4 = tm.mark()
         tm.add("backtrack", t3, t4)
         full = {"axh": bt["c_axh"], "axl": bt["c_axl"],
                 "ayh": bt["c_ayh"], "ayl": bt["c_ayl"],
@@ -300,17 +287,22 @@ class DeviceFront:
 
     def _pack(self, head, full, n_a, n_q, max_occ, bsz, acap, qcap, t0):
         """Stage 5: the flat planes, then one buffer for one copy (every
-        leaf as int64 words).  Returns (buffer, layout, padded planes)."""
-        head.update(self._pack_body(full, n_a, n_q, max_occ, bsz, acap,
-                                    qcap))
-        layout = []
-        parts = []
-        for key in sorted(head):
-            v = head[key]
-            layout.append((key, tuple(v.shape), v.dtype))
-            parts.append(v.reshape(-1).to(torch.int64))
-        buf = torch.cat(parts)
-        self.timer.add("pack", t0, self.timer.mark())
+        leaf as int64 words).  Returns (buffer, layout, padded planes);
+        the stage's end mark becomes last_end on the card."""
+        with trace.span("front.pack"):
+            head.update(self._pack_body(full, n_a, n_q, max_occ, bsz, acap,
+                                        qcap))
+            layout = []
+            parts = []
+            for key in sorted(head):
+                v = head[key]
+                layout.append((key, tuple(v.shape), v.dtype))
+                parts.append(v.reshape(-1).to(torch.int64))
+            buf = torch.cat(parts)
+            end = self.timer.mark()
+        self.timer.add("pack", t0, end)
+        if self.timer.cuda:
+            self.last_end = end
         return buf, layout, full
 
     @staticmethod
@@ -408,54 +400,93 @@ class DeviceFront:
             return False
         return True
 
+    def busy_mark(self):
+        """At the start of a host call: the end event of the newest
+        bucket batch submitted where it still runs on the card, else
+        None (always on the CPU)."""
+        end = self.last_end
+        return None if end is None or end.query() else end
+
+    def overlap_ms(self, mark, call_ms: float) -> float:
+        """The ms of a host call of call_ms, begun at `mark` (busy_mark),
+        that ran while the card was still on the batch: 0 where it had
+        finished before the call, the whole call where it still runs,
+        else the call less the card's time from the batch's end to an
+        event recorded now: exact while nothing follows the batch on the
+        stream, a lower bound otherwise."""
+        if mark is None:
+            return 0.0
+        if not mark.query():
+            return call_ms
+        now = self._now_mark()
+        now.synchronize()
+        return min(call_ms, max(0.0, call_ms - mark.elapsed_time(now)))
+
+    @staticmethod
+    def _now_mark():
+        ev = torch.cuda.Event(enable_timing=True)
+        ev.record()
+        return ev
+
     def submit(self, seqs: List[str]):
         """Run the device stages for a list of reads (str, bytes or
         uint8 arrays).  Launches are asynchronous on the card; gather()
         waits for the results.  Returns an opaque handle for
         gather()/gather_flat()."""
-        cold = self.device.type == "cuda" and not kernels.loaded()
-        by_bucket: Dict[int, List[int]] = {}
-        for i, s in enumerate(seqs):
-            for pad_len, bsz in self.buckets:
-                if len(s) <= pad_len:
-                    by_bucket.setdefault(pad_len, []).append(i)
-                    break
-        pending = []
-        for pad_len, idxs in by_bucket.items():
-            bsz = dict(self.buckets)[pad_len]
-            for c0 in range(0, len(idxs), bsz):
-                chunk = idxs[c0: c0 + bsz]
-                reads = [seqs[i] for i in chunk]
-                reads += [""] * (bsz - len(reads))
-                codes, lens = encode_batch(reads, pad_to=pad_len)
-                codes = torch.from_numpy(codes).to(self.device)
-                lens = torch.from_numpy(lens).to(self.device)
-                buf, layout, full = self._step(codes, lens, pad_len, bsz)
-                self.n_batches += 1
-                pending.append((chunk, buf, layout, full))
-            if pad_len not in self._warm:
-                self._warm.add(pad_len)
-                cold = True
-        self.last_submit_cold = cold
-        return (len(seqs), pending)
+        with trace.span("front.submit"):
+            cold = self.device.type == "cuda" and not kernels.loaded()
+            by_bucket: Dict[int, List[int]] = {}
+            for i, s in enumerate(seqs):
+                for pad_len, bsz in self.buckets:
+                    if len(s) <= pad_len:
+                        by_bucket.setdefault(pad_len, []).append(i)
+                        break
+            pending = []
+            for pad_len, idxs in by_bucket.items():
+                bsz = dict(self.buckets)[pad_len]
+                for c0 in range(0, len(idxs), bsz):
+                    chunk = idxs[c0: c0 + bsz]
+                    reads = [seqs[i] for i in chunk]
+                    reads += [""] * (bsz - len(reads))
+                    with trace.span("front.encode"):
+                        codes, lens = encode_batch(reads, pad_to=pad_len)
+                    with trace.span("front.upload"):
+                        codes = torch.from_numpy(codes).to(self.device)
+                        lens = torch.from_numpy(lens).to(self.device)
+                    with trace.span("front.dispatch"):
+                        buf, layout, full = self._step(codes, lens, pad_len,
+                                                       bsz)
+                    self.n_batches += 1
+                    pending.append((chunk, buf, layout, full, self.last_end))
+                if pad_len not in self._warm:
+                    self._warm.add(pad_len)
+                    cold = True
+            self.last_submit_cold = cold
+            return (len(seqs), pending)
 
     def _fetch(self, entry):
         """Copy one chunk's packed buffer to the host and unpack it; a
         batch that overflowed the flat planes also fetches the padded
         planes."""
-        chunk, buf, layout, full = entry
-        host = buf.cpu().numpy()
+        chunk, buf, layout, full, end = entry
+        with trace.span("front.wait"):
+            if end is not None:
+                end.synchronize()
+        with trace.span("front.copy"):
+            host = buf.cpu().numpy()
         self.timer.settle()
-        res = {}
-        off = 0
-        for key, shape, dtype in layout:
-            n = int(np.prod(shape)) if shape else 1
-            v = host[off: off + n].reshape(shape)
-            off += n
-            res[key] = v.astype(bool) if dtype == torch.bool else v
+        with trace.span("front.unpack"):
+            res = {}
+            off = 0
+            for key, shape, dtype in layout:
+                n = int(np.prod(shape)) if shape else 1
+                v = host[off: off + n].reshape(shape)
+                off += n
+                res[key] = v.astype(bool) if dtype == torch.bool else v
         if res["flat_ovf"]:
             self.n_flat_ovf += 1
-            res.update({k: v.cpu().numpy() for k, v in full.items()})
+            with trace.span("front.copy"):
+                res.update({k: v.cpu().numpy() for k, v in full.items()})
         return chunk, res
 
     def gather_flat(self, handle):
@@ -466,36 +497,43 @@ class DeviceFront:
         chunk that overflowed the flat planes, and every chunk of a
         seed-only front (its raw anchors go per read).  Reads absent
         from both, or None in extra, take the host path."""
-        n_seqs, pending = handle
-        flat = []
-        extra = {}
-        for entry in pending:
-            chunk, res = self._fetch(entry)
-            if res["flat_ovf"] or not self.chain_enabled:
-                for ri, fr in zip(chunk, self._chunk_results(chunk, res)):
-                    extra[ri] = fr
-                continue
-            nb = len(chunk)
-            ovf = res["overflow"][:nb]
-            sure = res["sure"][:nb]
-            ok = ~ovf & sure
-            self.n_fallback += int(ovf.sum())
-            self.n_chain_unsure += int((~sure & ~ovf).sum())
-            self.n_device += int(ok.sum())
-            sel = np.nonzero(ok)[0]
-            if not len(sel):
-                continue
-            AX = (res["f_axh"].astype(U64) << U64(32)) \
-                | res["f_axl"].astype(U64)
-            U = (res["u_sc"].astype(U64) << U64(32)) \
-                | (res["u_cnt"].astype(U64) & U64(0xFFFFFFFF))
-            blob = {"AX": AX, "AY": _unpack_ay(res["f_ay"]), "U": U,
-                    "MINI": res["f_mini"].astype(np.int64)}
-            for key in ("prefix", "n_a", "uprefix", "n_u", "mprefix",
-                        "n_mini", "rep_len", "n_q"):
-                blob[key] = res[key][sel]
-            flat.append((np.asarray([chunk[b] for b in sel]), blob))
-        return flat, extra
+        with trace.span("front.gather"):
+            n_seqs, pending = handle
+            flat = []
+            extra = {}
+            for entry in pending:
+                chunk, res = self._fetch(entry)
+                with trace.span("front.unpack"):
+                    self._unpack(chunk, res, flat, extra)
+            return flat, extra
+
+    def _unpack(self, chunk, res, flat, extra):
+        """One fetched chunk into gather_flat's flat list or its extra
+        map."""
+        if res["flat_ovf"] or not self.chain_enabled:
+            for ri, fr in zip(chunk, self._chunk_results(chunk, res)):
+                extra[ri] = fr
+            return
+        nb = len(chunk)
+        ovf = res["overflow"][:nb]
+        sure = res["sure"][:nb]
+        ok = ~ovf & sure
+        self.n_fallback += int(ovf.sum())
+        self.n_chain_unsure += int((~sure & ~ovf).sum())
+        self.n_device += int(ok.sum())
+        sel = np.nonzero(ok)[0]
+        if not len(sel):
+            return
+        AX = (res["f_axh"].astype(U64) << U64(32)) \
+            | res["f_axl"].astype(U64)
+        U = (res["u_sc"].astype(U64) << U64(32)) \
+            | (res["u_cnt"].astype(U64) & U64(0xFFFFFFFF))
+        blob = {"AX": AX, "AY": _unpack_ay(res["f_ay"]), "U": U,
+                "MINI": res["f_mini"].astype(np.int64)}
+        for key in ("prefix", "n_a", "uprefix", "n_u", "mprefix",
+                    "n_mini", "rep_len", "n_q"):
+            blob[key] = res[key][sel]
+        flat.append((np.asarray([chunk[b] for b in sel]), blob))
 
     def gather(self, handle) -> List[Optional[FrontResult]]:
         """One FrontResult per submitted read, or None where the read

@@ -69,6 +69,7 @@ from ..options import (DBG, MG_DBG_LCHAIN, MG_DBG_QNAME, MG_DBG_SEED,
                        MG_MAX_SEG, IndexOptions, MapOptions)
 from ..seqio.bseq import BSeqFile, NativeSeqReader, qname_same, toupper
 from ..seqio.gaf import write_gaf
+from ..utils import trace
 from ..utils.hashes import kh_hash_str, kh_hash_uint32
 from ..utils.ksort import radix_argsort
 from ..utils.native import get_lib
@@ -441,11 +442,18 @@ def _count(stats, key, n):
         stats[key] = stats.get(key, 0) + n
 
 
-def _timed_native(stats, *args, **kw):
-    """map_batch_native, its host time added to stats["tail_ms"]."""
-    t0 = time.perf_counter()
-    res = map_batch_native(*args, **kw)
-    _count(stats, "tail_ms", (time.perf_counter() - t0) * 1e3)
+def _timed_native(stats, name, *args, front=None, **kw):
+    """map_batch_native in the span `name` (tail.host_share,
+    tail.device_share or tail.probe), its host time added to
+    stats["tail_ms"].  For the device share, `front`: the part of the
+    call that ran while the front's newest batch was still on the card
+    adds to stats["tail_dev_overlap_ms"] (DeviceFront.overlap_ms)."""
+    mark = front.busy_mark() if front is not None else None
+    with trace.span(name) as sp:
+        res = map_batch_native(*args, **kw)
+    _count(stats, "tail_ms", sp.ms)
+    if front is not None:
+        _count(stats, "tail_dev_overlap_ms", front.overlap_ms(mark, sp.ms))
     return res
 
 
@@ -462,7 +470,7 @@ def _map_host_share(gi, opt, n_threads, split, stats, blob):
     # process CPU time is the single-thread cost the estimates compare
     c0 = time.thread_time() if n_threads == 1 else time.process_time()
     t0 = time.perf_counter()
-    res = _timed_native(stats, gi, opt, None, n_threads,
+    res = _timed_native(stats, "tail.host_share", gi, opt, None, n_threads,
                         blob=blob[:5] + (skipw if len(skipw) else None,))
     if split is not None:
         cpu = (time.thread_time() - c0) if n_threads == 1 \
@@ -538,10 +546,10 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
         dev_skip |= np.asarray(st["bad"])
         dskipw = np.nonzero(dev_skip)[0]
         dres = _timed_native(
-            stats, gi, opt, None, n_threads,
+            stats, "tail.device_share", gi, opt, None, n_threads,
             blob=(n, st["sq_addr"], st["sq_off"], st["nm_addr"],
                   st["nm_off"], dskipw if len(dskipw) else None),
-            fr_map=fr_map, fr_flat=fr_flat)
+            fr_map=fr_map, fr_flat=fr_flat, front=front)
         for k in cand:
             res[k] = dres.get(k)
         if not st["cold"]:      # a build or first run is not the steady cost
@@ -622,7 +630,7 @@ def _map_arena_frags(gi, opt, out, n_threads, n, sq_addr, sq_off, nm_addr,
                                       ct.c_void_p(st.ctypes.data),
                                       ct.c_void_p(en.ctypes.data), len(i2))
     skipw = np.nonzero(skip)[0]
-    res = _timed_native(stats, gi, opt, None, n_threads,
+    res = _timed_native(stats, "tail.host_share", gi, opt, None, n_threads,
                         blob=(nf, sq_addr, qso, nm_addr, qno,
                               skipw if len(skipw) else None),
                         frag_blob=(n_seg, seg_mid, qname_len))
@@ -666,7 +674,8 @@ def _arena_batches(rdr, max_bp, frag_mode=False):
             if stop:
                 return
             try:
-                a = rdr.read_batch_arena(max_bp, frag_mode)
+                with trace.span("read.arena"):
+                    a = rdr.read_batch_arena(max_bp, frag_mode)
             except Exception as e:          # re-raised on the consumer
                 q.put(("err", e))
                 return
@@ -678,7 +687,8 @@ def _arena_batches(rdr, max_bp, frag_mode=False):
     th.start()
     try:
         while True:
-            kind, a = q.get()
+            with trace.span("loop.read_wait"):
+                kind, a = q.get()
             if kind == "err":
                 raise a
             if a is None:
@@ -710,16 +720,18 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
         native bail, or a read the native path does not take) is mapped
         on the exact per-read path."""
         n_perread = 0
-        for k in range(n):
-            txt = res.get(k)
-            if txt is None:
-                name, seq = rec(k)
-                gcs = map_frag(gi, [len(seq)], [seq], opt, name,
-                               fast_emit=not (opt.flag & MG_M_CIGAR))
-                txt = write_gaf(gi.g, gcs, 1, [len(seq)], name, opt.flag)
-                n_perread += not bad[k]
-            if txt:
-                out.write(txt)
+        with trace.span("loop.emit"):
+            for k in range(n):
+                txt = res.get(k)
+                if txt is None:
+                    name, seq = rec(k)
+                    gcs = map_frag(gi, [len(seq)], [seq], opt, name,
+                                   fast_emit=not (opt.flag & MG_M_CIGAR))
+                    txt = write_gaf(gi.g, gcs, 1, [len(seq)], name,
+                                    opt.flag)
+                    n_perread += not bad[k]
+                if txt:
+                    out.write(txt)
         _count(stats, "n_perread", n_perread)
 
     pending = None      # in-flight split batch (the device busy on it)
@@ -801,7 +813,8 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
             # collect where it flagged a read
             pskip = np.ones(n, dtype=bool)
             pskip[cand] = False
-            ptxt = _timed_native(stats, gi, opt, None, n_threads,
+            ptxt = _timed_native(stats, "tail.probe", gi, opt, None,
+                                 n_threads,
                                  blob=(n, sq_addr, sq_off, nm_addr, nm_off,
                                        np.nonzero(pskip)[0]),
                                  fr_map=fr_map)
@@ -1055,11 +1068,10 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
         # the thread's own CPU time (the one-thread native call runs in
         # this thread) is the host's per-read cost free of contention
         # with the device path's host work
-        t0 = time.perf_counter()
         c0 = time.thread_time()
-        txt = map_batch_native(gi, opt, items, 1, host_collect=True)
-        return (txt, time.perf_counter() - t0, time.thread_time() - c0,
-                len(items))
+        with trace.span("tail.host_share") as sp:
+            txt = map_batch_native(gi, opt, items, 1, host_collect=True)
+        return (txt, sp.ns / 1e9, time.thread_time() - c0, len(items))
 
     def _read_prep():
         """Read, group and submit the next batch: the device launches
@@ -1178,7 +1190,8 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                           batch[frags[fi][0]].seq, fr)
                          for fi, fr in front_res.items()
                          if fr is not None and frags[fi][1] == 1]
-                batch_txt = _timed_native(stats, gi, opt, items, n_threads)
+                batch_txt = _timed_native(stats, "tail.device_share", gi,
+                                          opt, items, n_threads, front=front)
                 if items:
                     if split.pop("sub_cold", False):
                         split.pop("sub_wall", None)  # a build, not a cost
@@ -1193,8 +1206,8 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                            for fi, fr in front_res.items() if fr is None]
                 if flagged:
                     batch_txt.update(_timed_native(
-                        stats, gi, opt, flagged, n_threads,
-                        host_collect=True))
+                        stats, "tail.device_share", gi, opt, flagged,
+                        n_threads, host_collect=True, front=front))
             elif host_batch_ok:
                 items = []
                 for fi, (off, n_seg) in enumerate(frags):
@@ -1214,8 +1227,9 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                                       None))
                 flips_done = True
                 if items:
-                    batch_txt = _timed_native(stats, gi, opt, items,
-                                              n_threads, host_collect=True)
+                    batch_txt = _timed_native(stats, "tail.host_share",
+                                              gi, opt, items, n_threads,
+                                              host_collect=True)
             if split_ok:
                 # reads since the last balance point (a cycle can span
                 # batches that ran without a host share)
@@ -1342,7 +1356,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     and host shares (n_share_dev, n_share_host), the device probes
     (n_probes), and with a front the final share and collapsed (where
     the loop ran a split), the front's counters and per-stage device
-    times (ms).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
+    times (stage_ms).  It also receives the process's totals of the
+    spans (utils/trace.py; span_ms, span_n: ms and calls by name) and
+    tail_dev_overlap_ms (the ms of device-share tails that ran while
+    the front's newest batch was still on the card).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
     the graph-chain stage (every read then maps on the per-read path);
     cov: (c_seg, c_link) float64 arrays the reads' coverage adds to
     (--cov), instead of GAF."""
@@ -1358,6 +1375,7 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
                        gwfa_pool, cov)
     if stats is not None:
         stats["map_ms"] = (time.perf_counter() - t0) * 1e3
+        stats.update(trace.snapshot())
     if front is not None:
         front.log_stats()
         if stats is not None:
@@ -1388,13 +1406,13 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
     tail bridges on the host); its jobs the kernel
     flags bridge on the host, with the same bytes.  With --cov (the
     MG_M_CAL_COV flag) the reads' coverage goes into g's dc:f tags
-    instead of GAF.  `stats`, when given, receives the index wall time
-    (index_ms) and what map_reads reports, and with a pool its counts
-    (gwfa_jobs, gwfa_device, gwfa_flagged, gwfa_oversize)."""
+    instead of GAF.  `stats`, when given, receives what map_reads
+    reports (the index build among its spans: setup.index), and with a
+    pool its counts (gwfa_jobs, gwfa_device, gwfa_flagged,
+    gwfa_oversize)."""
     dev = resolve_device(device)
     opt = copy.copy(opt0)
     _check_options(opt)
-    t0 = time.perf_counter()
     gi = build_index(g, ipt.k, ipt.w, opt)
     front = None
     if dev is not None:
@@ -1407,8 +1425,6 @@ def map_files(g: Graph, fns: List[str], ipt: IndexOptions,
     if opt.flag & MG_M_CAL_COV:
         cov = (np.zeros(g.n_seg, dtype=np.float64),
                np.zeros(g.n_arc, dtype=np.float64))
-    if stats is not None:
-        stats["index_ms"] = (time.perf_counter() - t0) * 1e3
     map_reads(gi, opt, fns, out, n_threads, front, stats, pool, cov)
     if pool is not None:
         pool.log_stats()
