@@ -993,9 +993,9 @@ def cli_phase(ref, gfa, work, kernels, k1_asm):
     log(f"phase 7 (a) asm, share pinned at 0: GAF bytes equal to the "
         f"host-only run ({host_a.count(chr(10))} lines, {len(host_a)} "
         f"bytes); n_device {st_a['n_device']}, n_fallback "
-        f"{st_a['n_fallback']}, flat-plane overflows {st_a['n_flat_ovf']} "
-        f"of {st_a['n_batches']} device batches, {n_long} contigs over 32 "
-        f"kb to the host, per-read path {st_a['n_perread']}; launches "
+        f"{st_a['n_fallback']}, {st_a['n_batches']} device batches, "
+        f"{n_long} contigs over 32 kb to the host, per-read path "
+        f"{st_a['n_perread']}; launches "
         f"{launches}")
     log(run_line("run (a) asm, seed-only front", st_a, len(ctg)))
     log(run_line("run (a) asm, host only", st_ha, len(ctg))
@@ -2551,8 +2551,8 @@ def main() -> int:
     share = st["n_device"] / max(1, tot)
     log(f"front: {st['n_device']}/{tot} eligible reads on the device "
         f"({st['n_fallback']} flagged, {st['n_chain_unsure']} chain "
-        f"unsure, {st['n_flat_ovf']} flat refetches, {st['n_batches']} "
-        f"device batches); launches {launches}")
+        f"unsure, {st['n_batches']} device batches); launches "
+        f"{launches}")
     if share < 0.8:
         raise AssertionError(f"only {share:.1%} of eligible reads on device")
     log(f"per-read path (native tail bailed): {st['n_perread']} reads of "

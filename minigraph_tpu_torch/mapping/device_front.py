@@ -11,20 +11,23 @@ bucket one step runs on the device:
      (ops/chain_chunked.py; CUDA kernel) where the bucket allows it;
   4. the exact backtrack and compaction (ops/backtrack.py; its walk is
      a CUDA kernel);
-  5. packing into one buffer, fetched with a single copy to the host.
+  5. packing into one buffer of the 64-bit words the native tail reads,
+     copied once, asynchronously, into pinned host memory (a pool the
+     front owns) right after the batch is dispatched.
 
 The host then hands each read's compacted chains to the native batch
-tail (mapping/native_tail.py).  Reads the device cannot reproduce
-exactly carry a flag (sketch tie overflow, qcap/acap overflow,
-occurrence-cap truncation, duplicate x, unsure chain or backtrack) and
-take the host path, so the output is byte-identical either way.
+tail (mapping/native_tail.py) as views of that memory.  Reads the
+device cannot reproduce exactly carry a flag (sketch tie overflow,
+qcap/acap overflow, occurrence-cap truncation, duplicate x, unsure
+chain or backtrack) and take the host path, so the output is
+byte-identical either way.
 
 When the chain parameters depend on the read or the chain is not the
 banded DP (--rmq and asm, -F, sr; `chain_enabled` False), the front is
 a seed-only front: it runs stages 1, 2 and 5 only and hands each read's
 raw anchors, rep_len, minimizer positions and minimizer count to the
-native tail, which chains them itself (mode 1 or 2) and skips its own
-collect.
+native tail (the same words, with no chain records), which chains them
+itself (mode 1 or 2) and skips its own collect.
 
 The kernel path is chosen by the device of the tensors: the front runs
 on the device it is given, and the ops wrappers launch the CUDA kernels
@@ -33,6 +36,7 @@ for tensors on the card and their plain versions for tensors on the CPU.
 from __future__ import annotations
 
 import os
+import weakref
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -61,6 +65,13 @@ DEFAULT_BUCKETS: Tuple[Tuple[int, int], ...] = (
     (2048, 256), (8192, 128), (32768, 128))
 STAGES = ("sketch", "collect", "chain", "backtrack", "pack")
 SEED_STAGES = ("sketch", "collect", "pack")
+# the per-read vectors of a packed batch, in buffer order; a chained
+# front adds its chain records' and its sure flags'
+READ_VECTORS = ("prefix", "n_a", "mprefix", "n_mini", "rep_len", "n_q",
+                "overflow")
+CHAIN_VECTORS = ("uprefix", "n_u", "sure")
+# blob keys of the per-read vectors a chunk hands on (gather_flat)
+BLOB_VECTORS = ("prefix", "n_a", "mprefix", "n_mini", "rep_len", "n_q")
 
 
 @dataclass
@@ -79,37 +90,69 @@ class FrontResult:
     u: Optional[np.ndarray] = None  # (n_u,) uint64
 
 
-def derive_query_info(q_cnt: np.ndarray, q_meta: np.ndarray, n_q: int,
-                      max_occ: int) -> Tuple[int, np.ndarray]:
-    """rep_len + mini_pos from per-emission query info
-    (collect_matches, map-algo.c:67-89)."""
-    cnts = q_cnt[:n_q].astype(np.int64)
-    metas = q_meta[:n_q].astype(np.uint32)
-    qpos = ((metas >> 1) & META_Q_MASK).astype(np.int64)   # k-mer end i
-    span = ((metas >> 26) & 0x1F).astype(np.int64)
-    rep = cnts >= max_occ
-    mini_pos = qpos[~rep].astype(np.int32)
-    rep_st = rep_en = 0
-    rep_len = 0
-    for en, sp in zip((qpos[rep] + 1).tolist(), span[rep].tolist()):
-        st = en - sp
-        if st > rep_en:
-            rep_len += rep_en - rep_st
-            rep_st, rep_en = st, en
+def pack_layout(B: int, acap: int, qcap: int, chains: bool):
+    """Where a bucket batch's words lie in its packed int64 buffer:
+    ({key: (offset, length)}, total words).  First the planes of the
+    live anchors of all reads, dense, each as long as the padded planes
+    hold (a read keeps at most acap anchors, qcap minimizers and UCAP
+    chains, so every batch fits): AX = axh<<32 | axl, AY in the host
+    layout occ<<56 | tandem<<42 | span<<32 | qpos, MINI the
+    non-repetitive minimizer positions, and with the chain on U = sc<<32
+    | cnt; each plane is followed by one word that takes the scatter's
+    writes of the padding.  Then one row of B words per read vector
+    (READ_VECTORS, then CHAIN_VECTORS)."""
+    planes = [("AX", B * acap), ("AY", B * acap), ("MINI", B * qcap)]
+    if chains:
+        planes.append(("U", B * UCAP))
+    lay = {}
+    off = 0
+    for key, cap in planes:
+        lay[key] = (off, cap)
+        off += cap + 1
+    for key in READ_VECTORS + (CHAIN_VECTORS if chains else ()):
+        lay[key] = (off, B)
+        off += B
+    return lay, off
+
+
+class _Lease:
+    """A pinned staging buffer lent to one bucket batch.  Its host views
+    (np.asarray(lease) and every view of that) hold the lease, and the
+    buffer goes back to the pool only when the last of them is gone:
+    after the handle and every blob or FrontResult made from it."""
+    __slots__ = ("tensor", "__weakref__")
+
+    def __init__(self, tensor):
+        self.tensor = tensor
+
+    @property
+    def __array_interface__(self):
+        return {"shape": (self.tensor.numel(),), "typestr": "<i8",
+                "data": (self.tensor.data_ptr(), False), "version": 3}
+
+
+class _StagePool:
+    """Pinned int64 host buffers for the front's packed batches, by
+    length (one a bucket shape), reused once their lease is dropped.
+    pinned_bytes: what the pool has allocated."""
+
+    def __init__(self):
+        self.free: Dict[int, List[torch.Tensor]] = {}
+        self.pinned_bytes = 0
+
+    def take(self, n: int) -> _Lease:
+        free = self.free.get(n)
+        if free:
+            t = free.pop()
         else:
-            rep_en = en
-    rep_len += rep_en - rep_st
-    return rep_len, mini_pos
+            t = torch.empty(n, dtype=torch.int64, pin_memory=True)
+            self.pinned_bytes += n * 8
+        lease = _Lease(t)
+        weakref.finalize(lease, self._give_back, t)
+        return lease
 
-
-def _unpack_ay(pk: np.ndarray) -> np.ndarray:
-    """Flat ay word occ8|tandem1|span6|qpos17 -> host ay layout
-    occ<<56 | tandem<<42 | span<<32 | qpos."""
-    pk = pk.astype(U64)
-    return ((pk >> U64(24)) << U64(56)) \
-        | (((pk >> U64(23)) & U64(1)) << U64(42)) \
-        | (((pk >> U64(17)) & U64(0x3F)) << U64(32)) \
-        | (pk & U64(0x1FFFF))
+    def _give_back(self, t):
+        self.free.setdefault(t.numel(), []).append(t)
 
 
 class DeviceFront:
@@ -159,7 +202,11 @@ class DeviceFront:
         self.n_device = 0
         self.n_fallback = 0
         self.n_chain_unsure = 0
-        self.n_flat_ovf = 0
+        # the bytes of the packed words handed on (on the card copied into
+        # pinned memory from _pool, on the CPU viewed where the step left
+        # them)
+        self.stage_bytes = 0
+        self._pool = _StagePool()
         self.n_batches = 0    # device steps run (one a bucket batch)
         # True after a submit that built the kernel library or ran a
         # bucket for the first time: the split controller of the file
@@ -222,8 +269,7 @@ class DeviceFront:
     def _step(self, codes: torch.Tensor, lens: torch.Tensor, pad_len: int,
               bsz: int):
         """Run the device stages on one padded batch; returns the packed
-        device buffer, its layout and the padded planes (kept for the
-        rare batch that overflows the flat planes)."""
+        device buffer and its layout."""
         qcap, acap, win, tile = self.caps(pad_len)
         opt = self.opt
         gi = self.gi
@@ -250,9 +296,7 @@ class DeviceFront:
             # seed-only: the raw anchor planes go to the host
             full = {k: res[k] for k in ("axh", "axl", "ayh", "ayl")}
             full.update(q_cnt=q_cnt, q_meta=res["q_meta"])
-            head = {"n_a": res["n_a"], "n_q": res["n_q"],
-                    "overflow": overflow}
-            return self._pack(head, full, res["n_a"], res["n_q"],
+            return self._pack(full, res["n_a"], res["n_q"], overflow, None,
                               max_occ, bsz, acap, qcap, t2)
         # the chunked chain drops the max_ii candidate, exact only while
         # the iteration clamp clears the buffer (the JAX front's guards)
@@ -280,64 +324,61 @@ class DeviceFront:
                 "ayh": bt["c_ayh"], "ayl": bt["c_ayl"],
                 "u_pad_sc": bt["u_sc"], "u_pad_cnt": bt["u_cnt"],
                 "n_u": bt["n_u"], "q_cnt": q_cnt, "q_meta": res["q_meta"]}
-        head = {"n_a": bt["n_v"], "n_q": res["n_q"], "overflow": overflow,
-                "sure": sure}
-        return self._pack(head, full, bt["n_v"], res["n_q"], max_occ, bsz,
-                          acap, qcap, t4)
+        return self._pack(full, bt["n_v"], res["n_q"], overflow, sure,
+                          max_occ, bsz, acap, qcap, t4)
 
-    def _pack(self, head, full, n_a, n_q, max_occ, bsz, acap, qcap, t0):
-        """Stage 5: the flat planes, then one buffer for one copy (every
-        leaf as int64 words).  Returns (buffer, layout, padded planes);
-        the stage's end mark becomes last_end on the card."""
+    def _pack(self, full, n_a, n_q, overflow, sure, max_occ, bsz, acap,
+              qcap, t0):
+        """Stage 5 (_pack_body) in its span and stage mark.  Returns
+        (buffer, layout); the stage's end mark becomes last_end on the
+        card."""
         with trace.span("front.pack"):
-            head.update(self._pack_body(full, n_a, n_q, max_occ, bsz, acap,
-                                        qcap))
-            layout = []
-            parts = []
-            for key in sorted(head):
-                v = head[key]
-                layout.append((key, tuple(v.shape), v.dtype))
-                parts.append(v.reshape(-1).to(torch.int64))
-            buf = torch.cat(parts)
+            buf, layout = self._pack_body(full, n_a, n_q, overflow, sure,
+                                          max_occ, bsz, acap, qcap)
             end = self.timer.mark()
         self.timer.add("pack", t0, end)
         if self.timer.cuda:
             self.last_end = end
-        return buf, layout, full
+        return buf, layout
 
     @staticmethod
-    def _pack_body(full, n_a, n_q, max_occ, B, acap, qcap):
+    def _pack_body(full, n_a, n_q, overflow, sure, max_occ, B, acap, qcap):
         """Dense packing of the live anchors of all reads (the chain
-        anchors, or a seed-only front's raw anchors) into flat planes of
-        half the padded size (pack_body of the JAX front): ay packed to
-        one word occ8|tandem1|span6|qpos17 (span <= 31 by construction,
-        qpos < 2^17 for bucket reads); rep_len and the non-repetitive
-        minimizer positions computed on the device; chain records, where
-        there are any, dense-packed.  A batch fuller than the flat caps
-        sets flat_ovf and is unpacked from the padded planes instead."""
+        anchors, or a seed-only front's raw anchors) into one int64
+        buffer of the words the native tail reads, laid out by
+        pack_layout (pack_body of the JAX front, with the host's word
+        assembly done here): the flat ay word occ8|tandem1|span6|qpos17
+        of the JAX front widened to the host layout (span <= 31 by
+        construction, qpos < 2^17 for bucket reads); rep_len and the
+        non-repetitive minimizer positions computed on the device; chain
+        records, where there are any (sure not None), dense-packed.
+        Returns (buffer, layout)."""
         dev = n_a.device
-        cap_flat = (B * acap) // 2
-        cap_mini = (B * qcap * 3) // 4
-        cap_u = B * 8
-        I32 = torch.int32
-        n_a = n_a.to(torch.int64)
+        I64 = torch.int64
+        chains = sure is not None
+        lay, total = pack_layout(B, acap, qcap, chains)
+        buf = torch.zeros(total, dtype=I64, device=dev)
+        n_a = n_a.to(I64)
 
         def excl(v):
             return torch.cumsum(v, 0) - v
 
+        def put(key, v, pos, ok):
+            """v's words where ok at pos in the plane `key`, the rest
+            into the word after it."""
+            off, cap = lay[key]
+            ix = torch.where(ok, pos + off, off + cap)
+            buf.scatter_(0, ix.reshape(-1), v.reshape(-1))
+
         ar = torch.arange(acap, device=dev)[None, :]
         valid = ar < n_a[:, None]
         prefix = excl(n_a)
-        idx = torch.where(valid, prefix[:, None] + ar, cap_flat).reshape(-1)
-
-        def flat(v, cap, ix):
-            out = torch.zeros(cap + 1, dtype=v.dtype, device=dev)
-            out.scatter_(0, torch.clamp(ix, max=cap), v.reshape(-1))
-            return out[:cap]
-
-        ayh, ayl = full["ayh"], full["ayl"]
-        ay_pk = ((ayh >> 24) << 24) | (((ayh >> 10) & 1) << 23) \
-            | ((ayh & 0x3F) << 17) | (ayl & 0x1FFFF)
+        pos = prefix[:, None] + ar
+        put("AX", (full["axh"] << 32) | full["axl"], pos, valid)
+        ayh = full["ayh"]
+        # occ<<56 keeps ayh's bits 24-31 (the shift drops the rest)
+        put("AY", ((ayh >> 24) << 56) | (((ayh >> 10) & 1) << 42)
+            | ((ayh & 0x3F) << 32) | (full["ayl"] & 0x1FFFF), pos, valid)
         # rep_len + mini_pos (derive_query_info / collect_matches,
         # map-algo.c:67-89): q_cnt is clipped at 255 >= every max_occ
         q_meta = full["q_meta"]
@@ -360,28 +401,21 @@ class DeviceFront:
         mini_sel = q_ok & ~rep
         n_mini = mini_sel.sum(1)
         mprefix = excl(n_mini)
-        mrank = torch.cumsum(mini_sel.to(torch.int64), 1) - 1
-        midx = torch.where(mini_sel, mprefix[:, None] + mrank,
-                           cap_mini).reshape(-1)
-        out = {"f_axh": flat(full["axh"], cap_flat, idx),
-               "f_axl": flat(full["axl"], cap_flat, idx),
-               "f_ay": flat(ay_pk, cap_flat, idx),
-               "prefix": prefix, "rep_len": rep_len, "n_mini": n_mini,
-               "mprefix": mprefix,
-               "f_mini": flat(qpos.to(I32), cap_mini, midx),
-               "flat_ovf": (n_a.sum() > cap_flat)
-               | (n_mini.sum() > cap_mini)}
-        if "n_u" in full:
-            n_u = full["n_u"].to(torch.int64)
+        mrank = torch.cumsum(mini_sel.to(I64), 1) - 1
+        put("MINI", qpos.to(I64), mprefix[:, None] + mrank, mini_sel)
+        vectors = [prefix, n_a, mprefix, n_mini, rep_len, n_q, overflow]
+        if chains:
+            n_u = full["n_u"].to(I64)
             ur = torch.arange(UCAP, device=dev)[None, :]
             uprefix = excl(n_u)
-            uidx = torch.where(ur < n_u[:, None], uprefix[:, None] + ur,
-                               cap_u).reshape(-1)
-            out.update(u_sc=flat(full["u_pad_sc"], cap_u, uidx),
-                       u_cnt=flat(full["u_pad_cnt"], cap_u, uidx),
-                       n_u=n_u, uprefix=uprefix)
-            out["flat_ovf"] = out["flat_ovf"] | (n_u.sum() > cap_u)
-        return out
+            put("U", (full["u_pad_sc"].to(I64) << 32)
+                | (full["u_pad_cnt"].to(I64) & 0xFFFFFFFF),
+                uprefix[:, None] + ur, ur < n_u[:, None])
+            vectors += [uprefix, n_u, sure]
+        off = lay["prefix"][0]
+        buf[off: off + len(vectors) * B].view(len(vectors), B).copy_(
+            torch.stack([v.to(I64) for v in vectors]))
+        return buf, lay
 
     # ------------------------------------------------------------------
     def eligible(self, opt: MapOptions, n_segs: int, qlen_sum: int) -> bool:
@@ -454,160 +488,104 @@ class DeviceFront:
                         codes = torch.from_numpy(codes).to(self.device)
                         lens = torch.from_numpy(lens).to(self.device)
                     with trace.span("front.dispatch"):
-                        buf, layout, full = self._step(codes, lens, pad_len,
-                                                       bsz)
+                        buf, layout = self._step(codes, lens, pad_len, bsz)
+                    with trace.span("front.stage"):
+                        host, done = self._stage(buf)
                     self.n_batches += 1
-                    pending.append((chunk, buf, layout, full, self.last_end))
+                    pending.append((chunk, host, layout, done))
                 if pad_len not in self._warm:
                     self._warm.add(pad_len)
                     cold = True
             self.last_submit_cold = cold
             return (len(seqs), pending)
 
-    def _fetch(self, entry):
-        """Copy one chunk's packed buffer to the host and unpack it; a
-        batch that overflowed the flat planes also fetches the padded
-        planes."""
-        chunk, buf, layout, full, end = entry
-        with trace.span("front.wait"):
-            if end is not None:
-                end.synchronize()
-        with trace.span("front.copy"):
-            host = buf.cpu().numpy()
-        self.timer.settle()
-        with trace.span("front.unpack"):
-            res = {}
-            off = 0
-            for key, shape, dtype in layout:
-                n = int(np.prod(shape)) if shape else 1
-                v = host[off: off + n].reshape(shape)
-                off += n
-                res[key] = v.astype(bool) if dtype == torch.bool else v
-        if res["flat_ovf"]:
-            self.n_flat_ovf += 1
-            with trace.span("front.copy"):
-                res.update({k: v.cpu().numpy() for k, v in full.items()})
-        return chunk, res
+    def _stage(self, buf):
+        """A packed batch's words on the host, and the event that marks
+        their arrival (None on the CPU).  On the card: one asynchronous
+        copy, queued behind the batch's own stages and ahead of the next
+        batch's, into a pinned buffer of the pool; on the CPU the buffer
+        itself."""
+        self.stage_bytes += buf.numel() * 8
+        if self.device.type != "cuda":
+            return buf.numpy(), None
+        lease = self._pool.take(buf.numel())
+        lease.tensor.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        return np.asarray(lease), done
+
+    @property
+    def stage_pinned_bytes(self) -> int:
+        """Pinned host memory the staging pool has allocated."""
+        return self._pool.pinned_bytes
 
     def gather_flat(self, handle):
-        """Batch-array results: (flat, extra), where flat is a list of
-        (positions-in-submit-order, blob of batch arrays) for reads whose
-        compacted chains the device delivered, and extra maps positions
-        to FrontResult-or-None for the chunks that do not go flat: a
-        chunk that overflowed the flat planes, and every chunk of a
-        seed-only front (its raw anchors go per read).  Reads absent
-        from both, or None in extra, take the host path."""
+        """Batch-array results: a list of (positions-in-submit-order,
+        blob of batch arrays) for the reads whose anchors the device
+        delivered, one entry a chunk with any.  A blob's planes (AX, AY,
+        MINI, and U where the front chains) are views of the chunk's
+        packed words; its per-read vectors (BLOB_VECTORS, and uprefix and
+        n_u with U) hold the delivered reads only.  The other reads take
+        the host path."""
         with trace.span("front.gather"):
             n_seqs, pending = handle
             flat = []
-            extra = {}
-            for entry in pending:
-                chunk, res = self._fetch(entry)
+            for chunk, host, layout, done in pending:
+                with trace.span("front.wait"):
+                    if done is not None:
+                        done.synchronize()
+                self.timer.settle()
                 with trace.span("front.unpack"):
-                    self._unpack(chunk, res, flat, extra)
-            return flat, extra
+                    self._unpack(chunk, host, layout, flat)
+            return flat
 
-    def _unpack(self, chunk, res, flat, extra):
-        """One fetched chunk into gather_flat's flat list or its extra
-        map."""
-        if res["flat_ovf"] or not self.chain_enabled:
-            for ri, fr in zip(chunk, self._chunk_results(chunk, res)):
-                extra[ri] = fr
-            return
+    def _unpack(self, chunk, host, layout, flat):
+        """One chunk's words, waited for, into gather_flat's flat list:
+        the planes AX, AY and U as uint64 views, MINI as int64, and the
+        `ok` selection of the per-read vectors."""
+        def view(key):
+            off, n = layout[key]
+            return host[off: off + n]
+
         nb = len(chunk)
-        ovf = res["overflow"][:nb]
-        sure = res["sure"][:nb]
-        ok = ~ovf & sure
-        self.n_fallback += int(ovf.sum())
-        self.n_chain_unsure += int((~sure & ~ovf).sum())
+        ok = view("overflow")[:nb] == 0
+        self.n_fallback += int(nb - ok.sum())
+        keys = BLOB_VECTORS
+        blob = {"AX": view("AX").view(U64), "AY": view("AY").view(U64),
+                "MINI": view("MINI")}
+        if self.chain_enabled:
+            sure = view("sure")[:nb] != 0
+            self.n_chain_unsure += int((ok & ~sure).sum())
+            ok &= sure
+            keys += ("uprefix", "n_u")
+            blob["U"] = view("U").view(U64)
         self.n_device += int(ok.sum())
         sel = np.nonzero(ok)[0]
         if not len(sel):
             return
-        AX = (res["f_axh"].astype(U64) << U64(32)) \
-            | res["f_axl"].astype(U64)
-        U = (res["u_sc"].astype(U64) << U64(32)) \
-            | (res["u_cnt"].astype(U64) & U64(0xFFFFFFFF))
-        blob = {"AX": AX, "AY": _unpack_ay(res["f_ay"]), "U": U,
-                "MINI": res["f_mini"].astype(np.int64)}
-        for key in ("prefix", "n_a", "uprefix", "n_u", "mprefix",
-                    "n_mini", "rep_len", "n_q"):
-            blob[key] = res[key][sel]
-        flat.append((np.asarray([chunk[b] for b in sel]), blob))
+        for key in keys:
+            blob[key] = view(key)[sel]
+        flat.append((np.asarray(chunk)[sel], blob))
 
     def gather(self, handle) -> List[Optional[FrontResult]]:
         """One FrontResult per submitted read, or None where the read
         must take the host path."""
         n_seqs, _ = handle
         out: List[Optional[FrontResult]] = [None] * n_seqs
-        flat, extra = self.gather_flat(handle)
-        for ri, fr in extra.items():
-            out[ri] = fr
-        for pos, blob in flat:
+        for pos, blob in self.gather_flat(handle):
+            U = blob.get("U")
             for j, ri in enumerate(pos.tolist()):
                 p0, n = int(blob["prefix"][j]), int(blob["n_a"][j])
                 m0, nm = int(blob["mprefix"][j]), int(blob["n_mini"][j])
-                u0, nu = int(blob["uprefix"][j]), int(blob["n_u"][j])
+                u = None
+                if U is not None:
+                    u0, nu = int(blob["uprefix"][j]), int(blob["n_u"][j])
+                    u = U[u0: u0 + nu]
                 out[ri] = FrontResult(
                     ax=blob["AX"][p0: p0 + n], ay=blob["AY"][p0: p0 + n],
                     rep_len=int(blob["rep_len"][j]),
                     mini_pos=blob["MINI"][m0: m0 + nm],
-                    n_mv=int(blob["n_q"][j]), u=blob["U"][u0: u0 + nu])
-        return out
-
-    def _chunk_results(self, chunk, res):
-        """Per-read FrontResults of one fetched chunk, from the flat
-        planes or, for a chunk that overflowed them, the padded ones."""
-        out: List[Optional[FrontResult]] = [None] * len(chunk)
-        padded = bool(res["flat_ovf"])
-        chains = self.chain_enabled
-        if padded:
-            AX = (res["axh"].astype(U64) << U64(32)) \
-                | res["axl"].astype(U64)
-            AH = res["ayh"].astype(U64)
-            # device ayh = occ<<24|tandem<<10|span; host layout =
-            # occ<<56|tandem<<42|span<<32 | qpos
-            AY = ((AH >> U64(24)) << U64(56)) \
-                | (((AH >> U64(10)) & U64(1)) << U64(42)) \
-                | ((AH & U64(0x3FF)) << U64(32)) | res["ayl"].astype(U64)
-            if chains:
-                U = (res["u_pad_sc"].astype(U64) << U64(32)) \
-                    | (res["u_pad_cnt"].astype(U64) & U64(0xFFFFFFFF))
-        else:
-            AX = (res["f_axh"].astype(U64) << U64(32)) \
-                | res["f_axl"].astype(U64)
-            AY = _unpack_ay(res["f_ay"])
-            MINI = res["f_mini"].astype(np.int64)
-            if chains:
-                U = (res["u_sc"].astype(U64) << U64(32)) \
-                    | (res["u_cnt"].astype(U64) & U64(0xFFFFFFFF))
-        for bi in range(len(chunk)):
-            if res["overflow"][bi]:
-                self.n_fallback += 1
-                continue
-            if chains and not res["sure"][bi]:
-                self.n_chain_unsure += 1
-                continue
-            n = int(res["n_a"][bi])
-            n_q = int(res["n_q"][bi])
-            if padded:
-                ax, ay = AX[bi, :n], AY[bi, :n]
-                rep_len, mini_pos = derive_query_info(
-                    res["q_cnt"][bi], res["q_meta"][bi], n_q,
-                    int(self.opt.occ_max1))
-                u = U[bi, : int(res["n_u"][bi])] if chains else None
-            else:
-                p0, m0 = int(res["prefix"][bi]), int(res["mprefix"][bi])
-                ax, ay = AX[p0: p0 + n], AY[p0: p0 + n]
-                rep_len = int(res["rep_len"][bi])
-                mini_pos = MINI[m0: m0 + int(res["n_mini"][bi])]
-                u = None
-                if chains:
-                    u0 = int(res["uprefix"][bi])
-                    u = U[u0: u0 + int(res["n_u"][bi])]
-            out[bi] = FrontResult(ax=ax, ay=ay, rep_len=rep_len,
-                                  mini_pos=mini_pos, n_mv=n_q, u=u)
-            self.n_device += 1
+                    n_mv=int(blob["n_q"][j]), u=u)
         return out
 
     def log_stats(self):
@@ -618,7 +596,9 @@ class DeviceFront:
                  f"device seed stage: {self.n_device}/{tot} reads on "
                  f"device, {self.n_fallback} host fallbacks, "
                  f"{self.n_chain_unsure} chain-DP host reruns, "
-                 f"{self.n_flat_ovf} flat-plane refetches")
+                 f"{self.n_batches} batches, "
+                 f"{self.stage_bytes / 1e6:.1f} MB staged "
+                 f"({self.stage_pinned_bytes / 1e6:.1f} MB pinned)")
         if self._wfa_pool is not None:
             mlog("device_front",
                  f"device -c gap WFA: {self._wfa_pool.n_device} on "

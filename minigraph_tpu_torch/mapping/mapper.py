@@ -535,10 +535,9 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
         t0 = time.perf_counter()
         # batch arrays (gather_flat): the pointer tables fill with
         # vectorized numpy, no per-read Python
-        flat, extra = front.gather_flat(st["handle"])
         cand_arr = np.asarray(cand)
-        fr_flat = [(cand_arr[sel], fb) for sel, fb in flat]
-        fr_map = {cand[i]: fr for i, fr in extra.items() if fr is not None}
+        fr_flat = [(cand_arr[sel], fb)
+                   for sel, fb in front.gather_flat(st["handle"])]
         # every candidate runs here: a read the front flagged (no
         # chains) runs the in-worker collect, never the per-read path
         dev_skip = np.ones(n, dtype=bool)
@@ -549,7 +548,7 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
             stats, "tail.device_share", gi, opt, None, n_threads,
             blob=(n, st["sq_addr"], st["sq_off"], st["nm_addr"],
                   st["nm_off"], dskipw if len(dskipw) else None),
-            fr_map=fr_map, fr_flat=fr_flat, front=front)
+            fr_flat=fr_flat, front=front)
         for k in cand:
             res[k] = dres.get(k)
         if not st["cold"]:      # a build or first run is not the steady cost
@@ -1383,7 +1382,8 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
             stats.update(n_device=front.n_device,
                          n_fallback=front.n_fallback,
                          n_chain_unsure=front.n_chain_unsure,
-                         n_flat_ovf=front.n_flat_ovf,
+                         stage_bytes=front.stage_bytes,
+                         stage_pinned_bytes=front.stage_pinned_bytes,
                          n_batches=front.n_batches,
                          share=split.get("share"),
                          collapsed=bool(split.get("collapsed")),

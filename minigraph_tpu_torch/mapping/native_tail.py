@@ -244,9 +244,10 @@ def map_batch_native(gi, opt, items, n_threads: int,
     the native reader's arenas instead (items is then ignored and the
     keys are the arena indices 0..n-1): every read not in `skip` runs
     the whole host path in its worker (host collect), except the reads
-    the device front mapped, whose compacted chains come as batch arrays
-    (`fr_flat`, a list of (arena indices, DeviceFront.gather_flat blob))
-    or per read (`fr_map`, {arena index: FrontResult}).  A skipped
+    the device front mapped, whose compacted chains (or a seed-only
+    front's anchors: a blob without U) come as batch arrays (`fr_flat`,
+    a list of (arena indices, DeviceFront.gather_flat blob)) or per read
+    (`fr_map`, {arena index: FrontResult}).  A skipped
     read comes back None.  frag_blob = (n_seg, seg_mid, qname_len)
     presents the blob as fragments: the offsets span whole fragments
     (mates adjacent in the arena), seg_mid is a pair's boundary and
@@ -346,11 +347,15 @@ def map_batch_native(gi, opt, items, n_threads: int,
             n_mini[idxs] = fb["n_mini"]
             n_mv[idxs] = fb["n_q"]
             rep_len[idxs] = fb["rep_len"]
-            mode[idxs] = 3
-            fpp[idxs] = fb["U"].ctypes.data \
-                + fb["uprefix"].astype(np.uint64) * 8
-            mdx[idxs] = fb["n_u"]
-            mdy[idxs] = 0
+            if "U" in fb:
+                # the front's chains (mode 3); a seed-only front's blob
+                # has none and keeps the chain mode set above, as
+                # _fill_front does for a FrontResult without u
+                mode[idxs] = 3
+                fpp[idxs] = fb["U"].ctypes.data \
+                    + fb["uprefix"].astype(np.uint64) * 8
+                mdx[idxs] = fb["n_u"]
+                mdy[idxs] = 0
         for k, fr in (fr_map or {}).items():
             _fill_front(k, fr, *fill)
         qseq_blob = ct.cast(sq_addr, ct.c_char_p)

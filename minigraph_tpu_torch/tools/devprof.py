@@ -131,9 +131,10 @@ def profile(args) -> dict:
             "q_cnt": torch.clamp(res["q_cnt"], 0, 255),
             "q_meta": res["q_meta"]}
     st["pack"], _ = t(lambda: front._pack_body(
-        full, bt["n_v"], res["n_q"], max_occ, bsz, acap, qcap))
-    st["step"], (buf, _, _) = t(lambda: front._step(codes, lens, pad_len,
-                                                    bsz))
+        full, bt["n_v"], res["n_q"], res["overflow"] | sp.overflow,
+        sure & ~bt["bt_unsure"], max_occ, bsz, acap, qcap))
+    st["step"], (buf, _) = t(lambda: front._step(codes, lens, pad_len,
+                                                 bsz))
     t0 = time.perf_counter()
     fetch_bytes = buf.cpu().numpy().nbytes
     t_fetch = time.perf_counter() - t0

@@ -110,6 +110,13 @@ class StageTimer:
             self.ms[stage] += (t1 - t0) * 1e3
 
     def settle(self):
+        """Adds the stages whose events have completed: a batch's fetch
+        waits for its own stages only, and the stream runs them in the
+        order they were added."""
+        done = 0
         for stage, e0, e1 in self._pending:
+            if not e1.query():
+                break
             self.ms[stage] += e0.elapsed_time(e1)
-        self._pending.clear()
+            done += 1
+        del self._pending[:done]

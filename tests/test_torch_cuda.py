@@ -691,6 +691,80 @@ def test_front_launches_backtrack_once_a_batch(card, tmp_path):
     assert sum(fr is not None for fr in out) >= 20
 
 
+def test_front_staging_on_card(card, tmp_path):
+    """The front's packed words reach the host through one asynchronous
+    copy a bucket batch into pinned memory from its pool: the staged
+    buffers are pinned; two handles in flight (submit k, submit k + 1,
+    gather k, gather k + 1) give the blobs of one handle at a time and
+    never share a buffer; once warm, further batches allocate no pinned
+    memory (the front's stage_pinned_bytes)."""
+    from minigraph_tpu_torch.graph.gfa_io import read_gfa
+    from minigraph_tpu_torch.index.midx import build_index
+    from minigraph_tpu_torch.mapping import device_front as dfm
+    from minigraph_tpu_torch.options import MapOptions
+    from minigraph_tpu_torch.tools.synth import (make_reference,
+                                                 simulate_reads,
+                                                 write_bubble_rgfa)
+    ref = make_reference(300_000, seed=16)
+    hap = write_bubble_rgfa(ref, 17, str(tmp_path / "g.gfa"), seg_len=20_000)
+    reads = [s for _, s in simulate_reads([hap], 80, seed=18, mean_len=3000,
+                                          min_len=300, max_len=9000)]
+    part = (reads[:40], reads[40:])
+    mo = MapOptions()
+    front = dfm.DeviceFront(build_index(read_gfa(str(tmp_path / "g.gfa")),
+                                        17, 11, mo), mo, device="cuda",
+                            buckets=((2048, 16), (8192, 8), (32768, 8)))
+
+    def words(flat, n):
+        out = [None] * n
+        for pos, blob in flat:
+            for j, ri in enumerate(pos.tolist()):
+                p0, na = int(blob["prefix"][j]), int(blob["n_a"][j])
+                m0, nm = int(blob["mprefix"][j]), int(blob["n_mini"][j])
+                u0, nu = int(blob["uprefix"][j]), int(blob["n_u"][j])
+                out[ri] = (blob["AX"][p0: p0 + na].copy(),
+                           blob["AY"][p0: p0 + na].copy(),
+                           blob["MINI"][m0: m0 + nm].copy(),
+                           blob["U"][u0: u0 + nu].copy())
+        return out
+
+    def spans(handle):
+        """The byte ranges of a handle's staged buffers."""
+        out = []
+        for entry in handle[1]:
+            lease = entry[1].base
+            assert isinstance(lease, dfm._Lease)
+            assert lease.tensor.is_pinned()
+            ptr = lease.tensor.data_ptr()
+            out.append((ptr, ptr + lease.tensor.numel() * 8))
+        return out
+
+    one = [words(front.gather_flat(front.submit(p)), len(p)) for p in part]
+    h0 = front.submit(part[0])
+    h1 = front.submit(part[1])
+    s0, s1 = spans(h0), spans(h1)
+    assert all(b <= c or d <= a for a, b in s0 for c, d in s1)
+    two = [words(front.gather_flat(h), len(p)) for h, p in ((h0, part[0]),
+                                                            (h1, part[1]))]
+    del h0, h1
+    n_dev = 0
+    for a, b in zip(one, two):
+        for x, y in zip(a, b):
+            assert (x is None) == (y is None)
+            if x is not None:
+                n_dev += 1
+                for u, v in zip(x, y):
+                    assert u.dtype == v.dtype and np.array_equal(u, v)
+    assert n_dev >= 40
+    # warm: the same shapes again take their buffers back from the pool
+    pinned = front.stage_pinned_bytes
+    assert pinned > 0 and front.stage_bytes >= pinned
+    for _ in range(3):
+        for p in part:
+            front.gather_flat(front.submit(p))
+    assert front.stage_pinned_bytes == pinned
+
+
 def test_front_overlap_ms_on_card(card, tmp_path):
     """DeviceFront.busy_mark and overlap_ms on the card's events: a host
     call that ends while the batch still runs counts whole, one that

@@ -5,10 +5,10 @@ which chains them in mode 2 (RMQ) or mode 1 (banded DP).  Held, with
 exact equality: the front's per-read anchors, rep_len, minimizer
 positions and minimizer count against the JAX front's (k = 17; the JAX
 package's join tables take no wider keys) and against the native host
-collect (`collect_native`), read for read, through the flat planes and
-through the padded planes of a batch that overflows them; and the GAF
-bytes of both file loops with every eligible read on the front against
-the host-only run."""
+collect (`collect_native`), read for read, a batch of long reads
+included; the GAF bytes of both file loops with every eligible read on
+the front against the host-only run; and the flat hand-off to the
+native tail against the per-read one."""
 import io
 
 import numpy as np
@@ -102,8 +102,9 @@ def test_seed_only_front_matches_jax_and_native(data, kind):
 
 def test_asm_front_matches_native(data):
     """asm (k = 19, w = 10): the hash join with the wide-key check, and a
-    batch of long reads that overflows the flat planes (its anchors come
-    from the padded planes)."""
+    batch of long reads that overflowed the flat planes of half the
+    padded size the front once had (its anchors then came from the
+    padded planes), handed on as views like every other chunk."""
     gfa, _, _, hap = data
     io_, mo = IndexOptions(), MapOptions()
     opt_set("asm", io_, mo)
@@ -121,10 +122,8 @@ def test_asm_front_matches_native(data):
                                           max_len=2048, sub=0.001,
                                           indel=0.0001)]
     got = pf.gather(pf.submit(short))
-    assert pf.n_flat_ovf == 0
     assert same_as_native(gi, mo, short, got) >= 25
     got = pf.gather(pf.submit(long_))
-    assert pf.n_flat_ovf == 1
     assert same_as_native(gi, mo, long_, got) >= 20
 
 
@@ -159,3 +158,43 @@ def test_tail_modes_on_device_anchors(data, kind, loop):
     assert st["n_share_host"] == 0, st
     assert ("n_arena" in st) == (loop == "native")
     assert set(st["stage_ms"]) == {"sketch", "collect", "pack"}
+
+
+@pytest.mark.parametrize("kind", list(SEED_ONLY))
+def test_flat_blob_matches_per_read_handoff(data, kind):
+    """map_batch_native on a blob of the reads: the seed-only front's
+    chunks handed on as flat blobs (no U: the reads keep mode 2 for
+    --rmq, mode 1 for -F) write the same GAF bytes as the same anchors
+    handed on per read (fr_map), and as the workers' own collect."""
+    from minigraph_tpu_torch.mapping.native_tail import map_batch_native
+    gfa, _, reads, _ = data
+    mo = MapOptions(**SEED_ONLY[kind])
+    gi = build_index(read_gfa(gfa), 17, 11, mo)
+    front = DeviceFront(gi, mo, device="cpu", buckets=BUCKETS)
+    n = len(reads)
+    seqs = np.frombuffer("".join(reads).encode(), dtype=np.uint8)
+    names = np.frombuffer("".join(f"r{i}" for i in range(n)).encode(),
+                          dtype=np.uint8)
+    sq_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(s) for s in reads], out=sq_off[1:])
+    nm_off = np.zeros(n + 1, dtype=np.int64)
+    np.cumsum([len(f"r{i}") for i in range(n)], out=nm_off[1:])
+
+    flat = front.gather_flat(front.submit(reads))
+    assert flat and all("U" not in fb for _, fb in flat)
+    per_read = front.gather(front.submit(reads))
+    mapped = [i for i, fr in enumerate(per_read) if fr is not None]
+    assert sorted(np.concatenate([p for p, _ in flat]).tolist()) == mapped
+    skip = np.setdiff1d(np.arange(n), mapped)
+
+    def tail(**kw):
+        return map_batch_native(gi, mo, None, 2,
+                                blob=(n, seqs.ctypes.data, sq_off,
+                                      names.ctypes.data, nm_off, skip),
+                                **kw)
+    got = tail(fr_flat=flat)
+    want = tail(fr_map={i: per_read[i] for i in mapped})
+    host = tail()
+    assert got == want == host
+    assert sum(v is not None and v.count("\t") > 10
+               for v in got.values()) >= 30

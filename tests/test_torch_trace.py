@@ -34,10 +34,10 @@ torch.set_num_threads(1)
 
 BATCH_BP = 4000        # ~6 reads an arena batch
 LOOP = ("loop.read_wait", "read.arena", "loop.emit")
-SUBMIT = ("front.encode", "front.upload", "front.dispatch")
+SUBMIT = ("front.encode", "front.upload", "front.dispatch", "front.stage")
 STAGES = ("front.sketch", "front.collect", "front.chain", "front.backtrack",
           "front.pack")
-GATHER = ("front.wait", "front.copy", "front.unpack")
+GATHER = ("front.wait", "front.unpack")
 SETUP = ("setup.index", "setup.front.tables", "setup.front.upload")
 TAILS = ("tail.host_share", "tail.device_share", "tail.probe")
 OPEN = {"share": 0.35, "t_host": None, "t_dev": None}
@@ -131,13 +131,17 @@ def test_tail_spans_sum_to_tail_ms(files):
 
 def test_children_fit_inside_parents(files):
     fa, gi, _ = files
-    _, _, d = run(files, new_front(gi))
+    _, st, d = run(files, new_front(gi))
     ms = d["span_ms"]
     assert sum(ms[k] for k in SUBMIT) <= ms["front.submit"]
     assert sum(ms[k] for k in GATHER) <= ms["front.gather"]
     assert sum(ms[k] for k in STAGES) <= ms["front.dispatch"]
     n = d["span_n"]
-    assert n["front.encode"] == n["front.dispatch"] == n["front.pack"]
+    assert n["front.encode"] == n["front.dispatch"] == n["front.pack"] \
+        == n["front.stage"]
+    # every chunk is handed on as views: no copy of the host's own
+    assert "front.copy" not in n
+    assert st["stage_bytes"] > 0 and st["stage_pinned_bytes"] == 0
 
 
 def _ranges(events):
