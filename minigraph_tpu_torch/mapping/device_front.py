@@ -208,6 +208,13 @@ class DeviceFront:
         self.stage_bytes = 0
         self._pool = _StagePool()
         self.n_batches = 0    # device steps run (one a bucket batch)
+        # what the hash join's collect touches, counted from the batch
+        # shapes (padded slots included, as the gathers read them): the
+        # minimizer slots probed (each reads its two table slots) and the
+        # anchor slots (each reads its position entries and writes its
+        # anchor planes)
+        self.collect_probed = 0
+        self.collect_anchor_slots = 0
         # True after a submit that built the kernel library or ran a
         # bucket for the first time: the split controller of the file
         # loop (mapping/mapper.py) does not take that cost as the
@@ -286,6 +293,9 @@ class DeviceFront:
             res = collect(self.ji, sp.hh, sp.hl, sp.meta, sp.t_hh, sp.t_hl,
                           sp.t_meta, max_occ, self.occ_cap, qcap=qcap,
                           acap=acap)
+            if self.hashed:
+                self.collect_probed += bsz * qcap
+                self.collect_anchor_slots += bsz * acap
             overflow = res["overflow"] | sp.overflow
             # cnt <= 255 decides every occurrence test (max_occ caps at
             # 250)
@@ -515,6 +525,21 @@ class DeviceFront:
         return np.asarray(lease), done
 
     @property
+    def table_bytes(self) -> int:
+        """Device bytes of the join tables."""
+        return sum(t.numel() * t.element_size()
+                   for t in vars(self.ji).values()
+                   if isinstance(t, torch.Tensor))
+
+    @property
+    def table_slot_words(self) -> int:
+        """Table words one probed slot reads: tag and pay, and tag_hi
+        for wide keys (0 for the flat join, which has no slots)."""
+        if not self.hashed:
+            return 0
+        return 2 if self.ji.tag_hi is None else 3
+
+    @property
     def stage_pinned_bytes(self) -> int:
         """Pinned host memory the staging pool has allocated."""
         return self._pool.pinned_bytes
@@ -598,7 +623,8 @@ class DeviceFront:
                  f"{self.n_chain_unsure} chain-DP host reruns, "
                  f"{self.n_batches} batches, "
                  f"{self.stage_bytes / 1e6:.1f} MB staged "
-                 f"({self.stage_pinned_bytes / 1e6:.1f} MB pinned)")
+                 f"({self.stage_pinned_bytes / 1e6:.1f} MB pinned), "
+                 f"join tables {self.table_bytes / 1e6:.1f} MB")
         if self._wfa_pool is not None:
             mlog("device_front",
                  f"device -c gap WFA: {self._wfa_pool.n_device} on "

@@ -1358,7 +1358,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     times (stage_ms).  It also receives the process's totals of the
     spans (utils/trace.py; span_ms, span_n: ms and calls by name) and
     tail_dev_overlap_ms (the ms of device-share tails that ran while
-    the front's newest batch was still on the card).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
+    the front's newest batch was still on the card), and the hash
+    join's collect counts (collect_probed, collect_anchor_slots:
+    DeviceFront's) with its table's words a slot
+    (table_slot_words).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
     the graph-chain stage (every read then maps on the per-read path);
     cov: (c_seg, c_link) float64 arrays the reads' coverage adds to
     (--cov), instead of GAF."""
@@ -1385,6 +1388,9 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
                          stage_bytes=front.stage_bytes,
                          stage_pinned_bytes=front.stage_pinned_bytes,
                          n_batches=front.n_batches,
+                         collect_probed=front.collect_probed,
+                         collect_anchor_slots=front.collect_anchor_slots,
+                         table_slot_words=front.table_slot_words,
                          share=split.get("share"),
                          collapsed=bool(split.get("collapsed")),
                          stage_ms=dict(front.timer.ms))

@@ -45,6 +45,7 @@ import torch
 
 from . import u32
 from .sketch import META_Q_BITS
+from ..utils import trace
 
 U32MAX = u32.U32MAX
 INT64_MAX = (1 << 63) - 1
@@ -146,6 +147,33 @@ def _slot_hashes_np(hh, hl, hbits):
     return (a1 >> np.uint32(32 - hbits)), (a2 >> np.uint32(32 - hbits))
 
 
+CUCKOO_STEPS = 200   # moves a key's walk may make before the table grows
+CUCKOO_TRIES = 6     # table sizes tried, one more hbits each
+# the payload start<<10 | cnt<<2 | hh&3 must stay below 2^63
+START_LIMIT = 1 << 53
+
+
+def cuckoo_table(hh, hl, hbits: int) -> tuple:
+    """(table, hbits): the key index in each of the 2^hbits slots (-1
+    where empty), walked in C (csrc/cuckoo.c) from the two slot hashes
+    of each key; a walk that gives up retries at one more hbits, six
+    sizes in all, as ops/anchors_hash.py does."""
+    from ..utils.native import get_lib
+    lib = get_lib()
+    for _ in range(CUCKOO_TRIES):
+        if hbits > 32:
+            raise ValueError("cuckoo table past 2^32 slots")
+        s1, s2 = (np.ascontiguousarray(s, dtype=np.uint32)
+                  for s in _slot_hashes_np(hh, hl, hbits))
+        table = np.empty(1 << hbits, dtype=np.int32)
+        if lib.mgt_cuckoo_walk(s1.ctypes.data, s2.ctypes.data, len(s1),
+                               table.ctypes.data, len(table),
+                               CUCKOO_STEPS) < 0:
+            return table, hbits
+        hbits += 1
+    raise RuntimeError("cuckoo build failed")
+
+
 @dataclass
 class HashJoinIndex:
     """Cuckoo hash table + position planes (u32 values, int64 tensors).
@@ -154,7 +182,10 @@ class HashJoinIndex:
     key's high bits ride in the payload's two low bits.  For wider keys
     (asm's k = 19, sr's k = 21) the port adds tag_hi, the whole high
     word of each slot's key, and checks it instead; the other tables
-    stay as the JAX package builds them."""
+    stay as the JAX package builds them.  Where a payload reaches
+    U32MAX (a start of 2^22 or more: a position array past ~4.19 M
+    entries), pay keeps its layout in 64 bits and an empty slot holds
+    -1 (`empty`)."""
     tag: torch.Tensor    # (H,) low 32 bits of the minimizer
     pay: torch.Tensor    # (H,) start<<10 | min(cnt,255)<<2 | hash_hi2
     p_rid: torch.Tensor  # (P,) rid<<1|strand
@@ -162,6 +193,7 @@ class HashJoinIndex:
     hbits: int
     occ_cap: int
     tag_hi: Optional[torch.Tensor] = None  # (H,) keys >> 32, wide keys
+    empty: int = U32MAX  # pay of an empty slot
 
     @staticmethod
     def host_arrays(gi) -> dict:
@@ -177,7 +209,9 @@ class HashJoinIndex:
         """numpy tables from flat index arrays (ops/anchors_hash.py
         HashJoinIndex.from_arrays): an "idx" shard's keys with their
         rebased starts; hbits_min forces a common table size over the
-        shards."""
+        shards.  While every payload stays below U32MAX, the empty
+        slots' value, the tables are the JAX package's, pay as uint32;
+        past that pay is int64 with empty slots -1."""
         keys = np.asarray(keys, dtype=np.uint64)
         start = np.asarray(start, dtype=np.int64)
         cnt = np.asarray(cnt, dtype=np.int64)
@@ -185,41 +219,20 @@ class HashJoinIndex:
         seg_len = np.asarray(seg_len, dtype=np.int64)
         K = len(keys)
         wide = keys.max(initial=0) >= 1 << 34
-        if start.max(initial=0) >= 1 << 22:
-            raise ValueError("position array too large for 22-bit start")
+        if start.max(initial=0) >= START_LIMIT:
+            raise ValueError("position array too large for a 64-bit payload")
         hh = (keys >> np.uint64(32)).astype(np.uint32)
         hl = keys.astype(np.uint32)
-        pay = (start.astype(np.uint32) << np.uint32(10)) \
-            | (np.minimum(cnt, 255).astype(np.uint32) << np.uint32(2)) \
-            | (hh & np.uint32(3))
+        pay = (start << 10) | (np.minimum(cnt, 255) << 2) \
+            | (hh & np.uint32(3)).astype(np.int64)
+        empty = U32MAX if pay.max(initial=0) < U32MAX else -1
         hbits = max(4, hbits_min, int(np.ceil(np.log2(max(K, 1) * 2))))
-        for _ in range(6):
-            H = 1 << hbits
-            s1, s2 = _slot_hashes_np(hh, hl, hbits)
-            s1, s2 = s1.tolist(), s2.tolist()
-            table = [-1] * H          # key index per slot
-            ok = True
-            for j in range(K):
-                cur, slot = j, s1[j]
-                for _ in range(200):  # cuckoo random walk
-                    if table[slot] < 0:
-                        table[slot] = cur
-                        cur = -1
-                        break
-                    cur, table[slot] = table[slot], cur
-                    a, b = s1[cur], s2[cur]
-                    slot = b if slot == a else a
-                if cur >= 0:
-                    ok = False
-                    break
-            if ok:
-                break
-            hbits += 1
-        else:
-            raise RuntimeError("cuckoo build failed")
-        table = np.asarray(table, dtype=np.int64)
+        with trace.span("setup.front.cuckoo"):
+            table, hbits = cuckoo_table(hh, hl, hbits)
+        H = 1 << hbits
         tag = np.zeros(H, dtype=np.uint32)
-        payt = np.full(H, 0xFFFFFFFF, dtype=np.uint32)
+        payt = np.full(H, empty, dtype=np.uint32 if empty == U32MAX
+                       else np.int64)
         filled = table >= 0
         tag[filled] = hl[table[filled]]
         payt[filled] = pay[table[filled]]
@@ -248,10 +261,12 @@ class HashJoinIndex:
     def from_arrays(cls, arrays: dict, occ_cap: int, device):
         def t(name):
             return u32.from_numpy(np.asarray(arrays[name]), device)
+        pay = np.asarray(arrays["pay"])
         return cls(tag=t("tag"), pay=t("pay"), p_rid=t("p_rid"),
                    p_sel=t("p_sel"), hbits=int(arrays["hbits"]),
                    occ_cap=occ_cap,
-                   tag_hi=t("tag_hi") if "tag_hi" in arrays else None)
+                   tag_hi=t("tag_hi") if "tag_hi" in arrays else None,
+                   empty=-1 if pay.dtype == np.int64 else U32MAX)
 
 
 def tables_from_numpy(kind: str, arrays: dict, device, occ_cap: int = 16):
@@ -407,8 +422,8 @@ def _hash_probe(hi: HashJoinIndex, qhh, qhl, qvalid):
         h1, h2 = y1 & 3, y2 & 3
     else:
         h1, h2 = hi.tag_hi[s1], hi.tag_hi[s2]
-    hit1 = (t1 == qhl) & (h1 == qhh) & (y1 != U32MAX)
-    hit2 = (t2 == qhl) & (h2 == qhh) & (y2 != U32MAX)
+    hit1 = (t1 == qhl) & (h1 == qhh) & (y1 != hi.empty)
+    hit2 = (t2 == qhl) & (h2 == qhh) & (y2 != hi.empty)
     payv = torch.where(hit1, y1, y2)
     found = (hit1 | hit2) & qvalid
     return (found, torch.where(found, (payv >> 2) & 0xFF, 0),

@@ -1,11 +1,12 @@
 """Build and load the native host runtime (native/*.c) for the port.
 
 The C sources in <repo>/native/ are shared with the JAX package; the
-port compiles them itself into <repo>/build/native/libmgt.so at first
-use (and again whenever a source is newer than the library) and never
-writes into native/.  A file lock serialises concurrent builds, and
-the library is written under a temporary name and renamed into place,
-so parallel test workers never load a half-written file.
+port compiles them, with its own host C (minigraph_tpu_torch/csrc/*.c),
+into <repo>/build/native/libmgt.so at first use (and again whenever a
+source is newer than the library) and never writes into native/.  A
+file lock serialises concurrent builds, and the library is written
+under a temporary name and renamed into place, so parallel test
+workers never load a half-written file.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from pathlib import Path
 
 REPO_ROOT = Path(__file__).resolve().parents[2]
 NATIVE_DIR = REPO_ROOT / "native"
+PORT_CSRC = REPO_ROOT / "minigraph_tpu_torch" / "csrc"
 BUILD_DIR = REPO_ROOT / "build" / "native"
 SO_PATH = BUILD_DIR / "libmgt.so"
 
@@ -26,7 +28,8 @@ _lib = None
 def _sources():
     # *_selftest.c is the standalone ASan harness, not library code
     return sorted(p for p in NATIVE_DIR.glob("*.c")
-                  if not p.name.endswith("_selftest.c"))
+                  if not p.name.endswith("_selftest.c")) \
+        + sorted(PORT_CSRC.glob("*.c"))
 
 
 def _needs_build() -> bool:
@@ -34,7 +37,8 @@ def _needs_build() -> bool:
         return True
     so_mtime = SO_PATH.stat().st_mtime
     return any(p.stat().st_mtime > so_mtime
-               for p in [*NATIVE_DIR.glob("*.c"), *NATIVE_DIR.glob("*.h")])
+               for p in [*NATIVE_DIR.glob("*.c"), *NATIVE_DIR.glob("*.h"),
+                         *PORT_CSRC.glob("*.c")])
 
 
 def build() -> Path:
@@ -66,5 +70,9 @@ def get_lib():
         u64p = ctypes.POINTER(ctypes.c_uint64)
         lib.mgt_radix_argsort_u64.restype = None
         lib.mgt_radix_argsort_u64.argtypes = [u64p, u64p, ctypes.c_int64]
+        lib.mgt_cuckoo_walk.restype = ctypes.c_int64
+        lib.mgt_cuckoo_walk.argtypes = [
+            ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int64,
+            ctypes.c_void_p, ctypes.c_int64, ctypes.c_int32]
         _lib = lib
     return _lib
