@@ -220,6 +220,9 @@ class DeviceFront:
         # loop (mapping/mapper.py) does not take that cost as the
         # device's steady cost
         self.last_submit_cold = False
+        # the span of the newest submit (utils/trace.py span: its t0 and
+        # ns): the file loop's overlap of submits with native tails
+        self.last_submit_span = None
         # the pack's end event of the newest bucket batch submitted (None
         # on the CPU): busy_mark reads it
         self.last_end = None
@@ -451,20 +454,25 @@ class DeviceFront:
         end = self.last_end
         return None if end is None or end.query() else end
 
-    def overlap_ms(self, mark, call_ms: float) -> float:
-        """The ms of a host call of call_ms, begun at `mark` (busy_mark),
-        that ran while the card was still on the batch: 0 where it had
-        finished before the call, the whole call where it still runs,
-        else the call less the card's time from the batch's end to an
-        event recorded now: exact while nothing follows the batch on the
-        stream, a lower bound otherwise."""
+    def overlap_ms(self, mark, call_ms: float,
+                   since_ms: float = None) -> float:
+        """The ms of a host call of call_ms, begun since_ms before now
+        (call_ms: it has just ended) with `mark` (busy_mark) taken at
+        its start or before, that ran while the card was still on the
+        batch: 0 where it had finished before, the whole call where it
+        still runs, else the time from the call's start to the batch's
+        end, which lies the card's time from the batch's end to an
+        event recorded now before now: exact where the card has no
+        other work when the event is recorded, a lower bound
+        otherwise."""
         if mark is None:
             return 0.0
         if not mark.query():
             return call_ms
+        since = call_ms if since_ms is None else since_ms
         now = self._now_mark()
         now.synchronize()
-        return min(call_ms, max(0.0, call_ms - mark.elapsed_time(now)))
+        return min(call_ms, max(0.0, since - mark.elapsed_time(now)))
 
     @staticmethod
     def _now_mark():
@@ -477,7 +485,8 @@ class DeviceFront:
         uint8 arrays).  Launches are asynchronous on the card; gather()
         waits for the results.  Returns an opaque handle for
         gather()/gather_flat()."""
-        with trace.span("front.submit"):
+        with trace.span("front.submit") as sp:
+            self.last_submit_span = sp
             cold = self.device.type == "cuda" and not kernels.loaded()
             by_bucket: Dict[int, List[int]] = {}
             for i, s in enumerate(seqs):

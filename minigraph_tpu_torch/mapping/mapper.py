@@ -9,14 +9,16 @@ side).  A single file the native reader opens goes through
 with a one-batch read-ahead thread, and, with a device front, the
 adaptive host/device split.  In the open split each arena batch sends a
 share of its eligible reads to the device front and maps the rest in
-one native host call (host collect), then finishes the previous batch's
-device share (its chains or anchors through the native tail), so the
-device works on batch k while the host finishes batch k-1.  The host
-share follows the measured per-read costs so that both finish together;
-when the device does not pay, the split collapses to the host with a
-device probe every few batches.  In frag mode the loop groups mates in
-C, applies the pair orientation in place on the arena and maps each
-pair as one batch item.
+one native host call (host collect); the device share goes to the card
+in groups of whole bucket batches, and one worker thread runs the
+batch's native calls in turn (the host share's, then each group's
+chains or anchors through the native tail) while the loop's thread
+submits the next group, so the submit and the tails overlap within the
+batch.  The host share follows the measured per-read costs so that both
+finish together; when the device does not pay, the split collapses to
+the host with a device probe every few batches.  In frag mode the loop
+groups mates in C, applies the pair orientation in place on the arena
+and maps each pair as one batch item.
 
 Everything else (stdin, paired files, the output shapes the native
 batch cannot serialize: --vc, -S; -D) goes through `_map_file_frag`,
@@ -457,24 +459,35 @@ def _timed_native(stats, name, *args, front=None, **kw):
     return res
 
 
-def _map_host_share(gi, opt, n_threads, split, stats, blob):
+def _map_host_share(gi, opt, n_threads, split, stats, blob,
+                    loop_thread=None):
     """The host share of an arena batch (every read not in the blob's
     skip list) in one native call; with a split, its per-read cost
-    updates the host estimates t_host and t_host_cpu."""
+    updates the host estimates t_host and t_host_cpu.  loop_thread:
+    the ident of a thread that runs other work meanwhile (the loop's,
+    where this runs on the tail worker), whose CPU time the estimates
+    leave out."""
     n, skipw = blob[0], blob[5]
     n_host = int(n - len(skipw))
     _count(stats, "n_share_host", n_host)
     if n_host == 0:
         return {}
+
     # with n_threads > 1 the workers are other threads: the summed
     # process CPU time is the single-thread cost the estimates compare
-    c0 = time.thread_time() if n_threads == 1 else time.process_time()
+    def cpu_s():
+        if n_threads == 1:
+            return time.thread_time()
+        c = time.process_time()
+        if loop_thread is not None:
+            c -= time.clock_gettime(time.pthread_getcpuclockid(loop_thread))
+        return c
+    c0 = cpu_s()
     t0 = time.perf_counter()
     res = _timed_native(stats, "tail.host_share", gi, opt, None, n_threads,
                         blob=blob[:5] + (skipw if len(skipw) else None,))
     if split is not None:
-        cpu = (time.thread_time() - c0) if n_threads == 1 \
-            else (time.process_time() - c0)
+        cpu = cpu_s() - c0
         wall = time.perf_counter() - t0
         split["t_host"] = _ema(
             split["t_host"],
@@ -483,78 +496,182 @@ def _map_host_share(gi, opt, n_threads, split, stats, blob):
     return res
 
 
-def _open_split_submit(gi, opt, front, split, n_threads, n, sq_addr,
-                       sq_off, nm_addr, nm_off, qlen, bad, stats):
-    """Phase 1 of the open host/device split for one arena batch:
-    submit the device share (asynchronous on the card) and map the host
-    share in one native call on the calling thread (the call releases
-    the GIL).  split["share"] is the host's fraction of the eligible
-    reads.  Returns the in-flight state for _open_split_finish; the
-    caller finishes batch k-1 only after submitting batch k, so the
-    device works on batch k while the host runs k-1's device-share
-    tails."""
-    import ctypes as ct
+# reads of the front's smallest bucket a group of the device share gives
+# each tail worker in C: enough that a group's native call pays its
+# fixed cost (a few ms a call) over many reads, few enough that the
+# first group's submit and the last group's tail, which nothing
+# overlaps, stay short
+TAIL_READS_PER_THREAD = 64
 
+
+def _tail_groups(front, cand, qlen, n_threads):
+    """The device share `cand` (arena indices in read order) cut into
+    submit groups of whole bucket batches: each read in the front's
+    bucket for it (the first (pad_len, bsz) of front.buckets that holds
+    it), each bucket's reads cut into batches of bsz in read order, as
+    front.submit cuts them, so that the groups' submits run the same
+    batches as one submit of the whole share; the batches in the order
+    of their first reads, and a group the fewest batches in a row whose
+    reads weigh n_threads * TAIL_READS_PER_THREAD (the last group what
+    is left).
+
+    A read of a bucket of pad_len p weighs (p0 / p)^2, p0 the smallest
+    bucket's pad_len.  A native call ends with its slowest read, and
+    the tail's cost of a read, and its spread, grow faster than the
+    read's length (on a 32 kb bucket's reads one took 250 times the
+    median): a group of long reads has to be long for its slowest read
+    to stay a small part of the call, and so the longer buckets' reads
+    go to the card in few groups, or one."""
+    pads = np.array([p for p, _ in front.buckets])
+    bsz = dict(front.buckets)
+    cand = np.asarray(cand, dtype=np.int64)
+    where = np.searchsorted(pads, qlen[cand])     # the first pad >= qlen
+    batches = []
+    for b in np.unique(where):
+        ks = cand[where == b].tolist()
+        step = bsz[int(pads[b])]
+        w = (pads[0] / pads[b]) ** 2
+        batches += [(ks[i: i + step], w * len(ks[i: i + step]))
+                    for i in range(0, len(ks), step)]
+    batches.sort(key=lambda x: x[0][0])
+    target = max(1, n_threads) * TAIL_READS_PER_THREAD
+    groups, cur, weight = [], [], 0.0
+    for ks, w in batches:
+        cur += ks
+        weight += w
+        if weight >= target:
+            groups.append(cur)
+            cur, weight = [], 0.0
+    if cur:
+        groups.append(cur)
+    return groups
+
+
+def _submit_group(front, st, group):
+    """Submit one group of the device share (asynchronous on the card);
+    its wall, its span's interval and whether it ran cold go to st."""
+    abuf, sq_off = st["abuf"], st["sq_off"]
+    t0 = time.perf_counter()
+    handle = front.submit(
+        [abuf[int(sq_off[k]): int(sq_off[k + 1])] for k in group])
+    st["sub_wall"] += time.perf_counter() - t0
+    st["cold"] |= front.last_submit_cold
+    sp = front.last_submit_span
+    st["submits"].append((sp.t0, sp.t0 + sp.ns))
+    return handle
+
+
+def _device_share_tail(gi, opt, n_threads, stats, blob, fr_flat):
+    """One group's device-share tail (on the tail worker): the front's
+    chains where it delivered them, the in-worker collect where it
+    flagged a read, never the per-read path; its host time added to
+    stats["tail_ms"].  Returns (the results, the call's span)."""
+    with trace.span("tail.device_share") as sp:
+        res = map_batch_native(gi, opt, None, n_threads, blob=blob,
+                               fr_flat=fr_flat)
+    _count(stats, "tail_ms", sp.ms)
+    return res, sp
+
+
+def _open_split_submit(gi, opt, front, split, n_threads, n, sq_addr,
+                       sq_off, nm_addr, nm_off, qlen, bad, stats, tails):
+    """Phase 1 of the open host/device split for one arena batch: queue
+    the host share's native call on the tail worker `tails` (it needs
+    nothing from the card, so it runs while the loop submits), cut the
+    device share into groups (_tail_groups) and submit the first
+    (asynchronous on the card).  split["share"] is the host's fraction
+    of the eligible reads.  Returns the batch's state for
+    _open_split_finish."""
     elig = [k for k in range(n) if not bad[k]
             and front.eligible(opt, 1, int(qlen[k]))]
     n_steal = int(len(elig) * split["share"])
     cand = elig[n_steal:]
-    sub_wall = 0.0
-    handle = None
-    cold = False
-    if cand:
-        total = int(sq_off[-1])
-        abuf = np.frombuffer((ct.c_char * total).from_address(sq_addr),
-                             dtype=np.uint8)
-        t0 = time.perf_counter()
-        handle = front.submit(
-            [abuf[int(sq_off[k]): int(sq_off[k + 1])] for k in cand])
-        sub_wall = time.perf_counter() - t0
-        cold = front.last_submit_cold
     # host share: everything not sent to the device
     host_skip = np.asarray(bad).copy()
     host_skip[cand] = True
     skipw = np.nonzero(host_skip)[0]
     _count(stats, "n_share_dev", len(cand))
-    res = _map_host_share(gi, opt, n_threads, split, stats,
-                          (n, sq_addr, sq_off, nm_addr, nm_off, skipw))
-    return {"n": n, "sq_addr": sq_addr, "sq_off": sq_off,
-            "nm_addr": nm_addr, "nm_off": nm_off, "bad": bad,
-            "cand": cand, "handle": handle, "res": res,
-            "sub_wall": sub_wall, "cold": cold}
+    blob = (n, sq_addr, sq_off, nm_addr, nm_off)
+    st = {"n": n, "blob": blob, "sq_off": sq_off, "cand": cand,
+          "tails": tails, "groups": [], "handle": None, "sub_wall": 0.0,
+          "cold": False, "submits": [], "host_job": None}
+    if n > len(skipw):
+        st["host_job"] = tails.put(_map_host_share, gi, opt, n_threads,
+                                   split, stats, blob + (skipw,),
+                                   loop_thread=threading.get_ident())
+    else:       # no host read, no native call: nothing for the worker
+        st["host_res"] = _map_host_share(gi, opt, n_threads, split, stats,
+                                         blob + (skipw,))
+    if cand:
+        total = int(sq_off[-1])
+        st["abuf"] = np.frombuffer(
+            (ct.c_char * total).from_address(sq_addr), dtype=np.uint8)
+        st["groups"] = _tail_groups(front, cand, qlen, n_threads)
+        st["handle"] = _submit_group(front, st, st["groups"][0])
+    return st
 
 
 def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
-    """Phase 2: gather the device share, map it through the native tail
-    (the front's chains where it delivered them, the in-worker collect
-    where it flagged a read), update the share controller, return the
-    merged results."""
-    n, cand = st["n"], st["cand"]
-    res = st["res"]
-    if st["handle"] is not None:
+    """Phase 2: for each group, submit it (the first is submitted),
+    gather it and queue its device-share tail on the tail worker (the
+    busy mark of the front's newest batch taken as it is queued), so
+    that the tail runs while the next group is submitted; then wait for
+    the worker, merge the results, count the overlaps, update the share
+    controller and return the batch's results.  The gather waits for
+    the group's copy, which trails its last launch by little: the card
+    runs a group's stages as they are launched, and the host's submit
+    is the longer part.  The worker touches arena bytes and numpy views
+    only: every torch call, event and staging lease stays on this
+    thread."""
+    n, cand, groups = st["n"], st["cand"], st["groups"]
+    tails = st["tails"]
+    jobs = []           # (job, busy mark, the group's views) a group
+    gather_wall = 0.0
+    handle = st.pop("handle")
+    for j, group in enumerate(groups):
+        if j:
+            handle = _submit_group(front, st, group)
         t0 = time.perf_counter()
         # batch arrays (gather_flat): the pointer tables fill with
         # vectorized numpy, no per-read Python
-        cand_arr = np.asarray(cand)
-        fr_flat = [(cand_arr[sel], fb)
-                   for sel, fb in front.gather_flat(st["handle"])]
-        # every candidate runs here: a read the front flagged (no
-        # chains) runs the in-worker collect, never the per-read path
+        garr = np.asarray(group)
+        fr_flat = [(garr[sel], fb) for sel, fb in front.gather_flat(handle)]
         dev_skip = np.ones(n, dtype=bool)
-        dev_skip[cand_arr] = False
-        dev_skip |= np.asarray(st["bad"])
+        dev_skip[garr] = False
         dskipw = np.nonzero(dev_skip)[0]
-        dres = _timed_native(
-            stats, "tail.device_share", gi, opt, None, n_threads,
-            blob=(n, st["sq_addr"], st["sq_off"], st["nm_addr"],
-                  st["nm_off"], dskipw if len(dskipw) else None),
-            fr_flat=fr_flat, front=front)
-        for k in cand:
+        gather_wall += time.perf_counter() - t0
+        mark = front.busy_mark()
+        jobs.append((tails.put(_device_share_tail, gi, opt, n_threads,
+                               stats, st["blob"] + (
+                                   dskipw if len(dskipw) else None,),
+                               fr_flat), mark, fr_flat))
+    host_job = st["host_job"]
+    calls = [job for job, _, _ in jobs]
+    if host_job is not None:
+        calls.insert(0, host_job)
+    tails.wait(calls)
+    res = st["host_res"] if host_job is None else host_job.result
+    tail_ns = 0
+    for (job, mark, _), group in zip(jobs, groups):
+        dres, sp = job.result
+        for k in group:
             res[k] = dres.get(k)
-        if not st["cold"]:      # a build or first run is not the steady cost
-            split["t_dev"] = _ema(
-                split["t_dev"],
-                (st["sub_wall"] + time.perf_counter() - t0) / len(cand))
+        tail_ns += job.t1 - job.t0
+        # the card has no work left (the last gather waited for it): the
+        # batch's end on the host's clock is exact
+        _count(stats, "tail_dev_overlap_ms", front.overlap_ms(
+            mark, sp.ms, (time.perf_counter_ns() - sp.t0) / 1e6))
+    # the submits' spans against the worker's calls (one thread: the
+    # calls do not overlap each other)
+    _count(stats, "submit_tail_overlap_ms", sum(
+        max(0, min(b, job.t1) - max(a, job.t0)) for a, b in st["submits"]
+        for job in calls) / 1e6)
+    _count(stats, "n_tail_groups", len(groups))
+    # a build or first run is not the steady cost
+    if groups and not st["cold"]:
+        split["t_dev"] = _ema(
+            split["t_dev"],
+            (st["sub_wall"] + gather_wall + tail_ns / 1e9) / len(cand))
     # ---- controller: share balance + collapse test
     now = time.perf_counter()
     t_last = split.get("t_last")
@@ -700,8 +817,89 @@ def _arena_batches(rdr, max_bp, frag_mode=False):
         th.join()
 
 
+class _TailJob:
+    """A call queued on a _TailWorker: `result` and the call's interval
+    on the worker (t0, t1: perf_counter_ns) once `done` is set."""
+    __slots__ = ("call", "result", "t0", "t1", "done")
+
+    def __init__(self, call):
+        self.call = call
+        self.result = None
+        self.t0 = self.t1 = 0
+        self.done = threading.Event()
+
+
+class _TailWorker:
+    """One thread that runs the open split's native tail calls in the
+    order they were queued; each call releases the GIL and runs its own
+    n_threads workers in C.  The queuing thread keeps every torch call:
+    a call gets arena bytes and numpy views only, and drops its
+    arguments before it reports done, so that the views of the front's
+    pinned staging buffers are given back on the queuing thread, which
+    holds them until it has waited.  A call's exception is raised on
+    the queuing thread by the next put or wait, and the calls queued
+    after it are skipped; close() skips what is still queued and joins
+    the thread once the running call has returned.
+
+    A call needs the GIL to start and again as its C work returns, and
+    the queuing thread holds it through the front's Python: at the
+    interpreter's default switch interval (5 ms) the tail's C workers
+    sat idle up to 5 ms a call between groups.  While the worker lives,
+    the interval is SWITCH_S."""
+    SWITCH_S = 0.0005
+
+    def __init__(self):
+        import queue
+        self._q = queue.Queue()
+        self._err = None
+        self._stop = False
+        self._switch = sys.getswitchinterval()
+        sys.setswitchinterval(min(self._switch, self.SWITCH_S))
+        self._th = threading.Thread(target=self._run, name="mgt-tail",
+                                    daemon=True)
+        self._th.start()
+
+    def _run(self):
+        while True:
+            job = self._q.get()
+            if job is None:
+                return
+            fn, args, kw = job.call
+            job.call = None
+            if not (self._stop or self._err is not None):
+                job.t0 = time.perf_counter_ns()
+                try:
+                    job.result = fn(*args, **kw)
+                except BaseException as e:      # raised on the queuing thread
+                    self._err = e
+                job.t1 = time.perf_counter_ns()
+            del fn, args, kw
+            job.done.set()
+
+    def _raise(self):
+        if self._err is not None:
+            raise self._err
+
+    def put(self, fn, *args, **kw) -> _TailJob:
+        self._raise()
+        job = _TailJob((fn, args, kw))
+        self._q.put(job)
+        return job
+
+    def wait(self, jobs) -> None:
+        for job in jobs:
+            job.done.wait()
+            self._raise()
+
+    def close(self) -> None:
+        self._stop = True
+        self._q.put(None)
+        self._th.join()
+        sys.setswitchinterval(self._switch)
+
+
 def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
-                     stats=None, frag_mode=False):
+                     stats=None, frag_mode=False, tails=None):
     """All-native single-file loop: C reader arenas -> native batch tail
     -> GAF text; Python touches only reads that take the per-read path
     (engine bails, zero-length, over max_qlen).  In frag mode each arena
@@ -712,7 +910,10 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
     read on the host and every _probe_interval-th arena batch probes a
     quarter batch through the device (submitted before the host call, so
     the device runs while the host maps) to keep t_dev fresh; two probes
-    in a row with a finish-together target <= 0.45 reopen the split."""
+    in a row with a finish-together target <= 0.45 reopen the split.
+    `tails`: the open split's _TailWorker (with a front), idle again
+    whenever the loop takes the next arena batch (the prefetch recycles
+    batch k-1's arena while batch k+1 maps)."""
 
     def _emit_batch(res, n, rec, bad):
         """Write a batch's results in read order; a None entry (a
@@ -733,18 +934,6 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
                     out.write(txt)
         _count(stats, "n_perread", n_perread)
 
-    pending = None      # in-flight split batch (the device busy on it)
-
-    def _flush_pending():
-        nonlocal pending
-        if pending is None:
-            return
-        st, rec_p = pending
-        pending = None
-        res_p = _open_split_finish(gi, opt, front, split, n_threads, st,
-                                   stats)
-        _emit_batch(res_p, st["n"], rec_p, st["bad"])
-
     for n, sq_addr, sq_off, nm_addr, nm_off in _arena_batches(
             rdr, opt.mini_batch_size, frag_mode):
         _count(stats, "n_arena", 1)
@@ -757,10 +946,7 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
         if opt.max_qlen > 0:
             bad = bad | (qlen > opt.max_qlen)
 
-        # bind this batch's arena: a pending batch's rec is called one
-        # iteration later, when the loop has moved to the next arena
-        def rec(k, nm_addr=nm_addr, nm_off=nm_off, sq_addr=sq_addr,
-                sq_off=sq_off):
+        def rec(k):
             name = ct.string_at(
                 nm_addr + int(nm_off[k]),
                 int(nm_off[k + 1] - nm_off[k])).decode("latin-1")
@@ -770,16 +956,16 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
             return name, seq
 
         if front is not None and not split.get("collapsed"):
-            # open split: submit batch k's device share and map its host
-            # share, then finish batch k-1 (its fetch has had a host
-            # batch to drain); emission stays in batch order
+            # open split: the host share and the device share's groups
+            # through the tail worker, idle again before the results are
+            # emitted, in read order
             st = _open_split_submit(gi, opt, front, split, n_threads, n,
                                     sq_addr, sq_off, nm_addr, nm_off, qlen,
-                                    bad, stats)
-            _flush_pending()
-            pending = (st, rec)
+                                    bad, stats, tails)
+            res = _open_split_finish(gi, opt, front, split, n_threads, st,
+                                     stats)
+            _emit_batch(res, n, rec, bad)
             continue
-        _flush_pending()
 
         skip = bad
         handle = cand = None
@@ -837,7 +1023,6 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
             for k in cand:
                 res[k] = ptxt.get(k)
         _emit_batch(res, n, rec, bad)
-    _flush_pending()
 
 
 def _read_batch_frag(fps, chunk_size: int):
@@ -1043,10 +1228,14 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
         except OSError:
             rdr = None
         if rdr is not None:
+            tails = _TailWorker() if front is not None else None
             try:
                 _map_file_native(gi, opt, rdr, out, n_threads, front, split,
-                                 stats, frag_mode)
+                                 stats, frag_mode, tails)
             finally:
+                # the worker's running call reads the reader's arenas
+                if tails is not None:
+                    tails.close()
                 rdr.close()
             return
 
@@ -1358,7 +1547,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     times (stage_ms).  It also receives the process's totals of the
     spans (utils/trace.py; span_ms, span_n: ms and calls by name) and
     tail_dev_overlap_ms (the ms of device-share tails that ran while
-    the front's newest batch was still on the card), and the hash
+    the front's newest batch was still on the card), the open split's
+    groups (n_tail_groups) and submit_tail_overlap_ms (the ms of the
+    front's submits during which the tail worker ran a native call,
+    counted once each arena batch has ended), and the hash
     join's collect counts (collect_probed, collect_anchor_slots:
     DeviceFront's) with its table's words a slot
     (table_slot_words).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of

@@ -248,7 +248,7 @@ def map_batch_native(gi, opt, items, n_threads: int,
     front's anchors: a blob without U) come as batch arrays (`fr_flat`,
     a list of (arena indices, DeviceFront.gather_flat blob)) or per read
     (`fr_map`, {arena index: FrontResult}).  A skipped
-    read comes back None.  frag_blob = (n_seg, seg_mid, qname_len)
+    read has no key.  frag_blob = (n_seg, seg_mid, qname_len)
     presents the blob as fragments: the offsets span whole fragments
     (mates adjacent in the arena), seg_mid is a pair's boundary and
     qname_len the first mate's name length."""
@@ -437,7 +437,14 @@ def map_batch_native(gi, opt, items, n_threads: int,
         raise MemoryError("native batch tail: allocation failed")
     txt = ct.string_at(pbuf, total).decode("latin-1") if total else ""
     lib.mgt_buf_free(pbuf)
-    keys = range(n) if blob is not None else [it[0] for it in items]
-    return {key: (txt[int(o_off[k]): int(o_off[k]) + int(o_len[k])]
-                  if status[k] == 0 else None)
-            for k, key in enumerate(keys)}
+    if blob is None:
+        keys = [it[0] for it in items]
+        live = range(n)
+    else:
+        keys = range(n)
+        # a skipped read is left out: a call that maps a few reads of a
+        # large arena costs what those reads cost, not the arena
+        live = np.flatnonzero(mode >= 0).tolist()
+    off, ln, ok = o_off.tolist(), o_len.tolist(), status.tolist()
+    return {keys[k]: (txt[off[k]: off[k] + ln[k]] if ok[k] == 0 else None)
+            for k in live}

@@ -13,7 +13,8 @@ trace, on the kernels' clock.  Prints one JSON object:
 - spans: for each span, the host ms and calls that map_files' stats
   hold (span_ms, span_n) beside the ms and count of its ranges in the
   trace.  The profiler records the thread that started it, so the
-  reader's prefetch thread (read.arena) has no range;
+  reader's prefetch thread (read.arena) and the open split's tail
+  worker (its tail.* calls) have no range;
 - window_s, busy_s, idle_s: from the first to the last range of the
   main thread, the union of the trace's kernels, copies and memsets,
   and what is left;
@@ -21,7 +22,8 @@ trace, on the kernels' clock.  Prints one JSON object:
   host was in at each idle gap's middle (outer > inner), largest first;
   a gap shorter than a span can fall outside it, so a short span's
   share is a lower bound;
-- tail_dev_overlap_ms and n_arena from the stats.
+- tail_dev_overlap_ms, submit_tail_overlap_ms, n_tail_groups and
+  n_arena from the stats.
 
 --trace keeps the exported trace in FILE; it is deleted otherwise.
 `profile_spans` runs any call the same way.
@@ -145,7 +147,8 @@ def report(stats: dict, red: Optional[dict]) -> dict:
     if red is not None:
         out.update({k: red[k] for k in ("window_s", "busy_s", "idle_s",
                                         "idle_by_span")})
-    for k in ("tail_dev_overlap_ms", "n_arena"):
+    for k in ("tail_dev_overlap_ms", "submit_tail_overlap_ms",
+              "n_tail_groups", "n_arena"):
         out[k] = stats.get(k)
     return out
 

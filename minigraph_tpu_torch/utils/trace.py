@@ -15,12 +15,14 @@ no profiler recording, the span never enters `record_function` (which
 costs microseconds even then): it reads the profiler's own flag, and
 only where torch is already imported.  The profiler records the thread
 that started it, so a span of another thread (the reader's prefetch,
-the Python reader loop's host-share worker) counts in the registry but
-has no range.
+the native file loop's tail worker, the Python reader loop's host-share
+worker) counts in the registry but has no range.
 
 Each name is entered by one thread at a time; the reader's prefetch
-thread has names of its own (`read.arena`).  The registry's adds take
-a lock all the same, so that no update is lost.
+thread has names of its own (`read.arena`), and the `tail.*` names are
+the tail worker's while the split is open, the loop thread's once it
+has collapsed.  The registry's adds take a lock all the same, so that
+no update is lost.
 """
 from __future__ import annotations
 
@@ -43,8 +45,9 @@ def _profiling() -> bool:
 
 class span:
     """Context manager: the block's host time under `name`; `ns` and
-    `ms` hold it once the block has left."""
-    __slots__ = ("name", "ns", "_t0", "_rf")
+    `ms` hold it once the block has left, `t0` its start
+    (`perf_counter_ns`)."""
+    __slots__ = ("name", "ns", "t0", "_rf")
 
     def __init__(self, name: str):
         self.name = name
@@ -56,11 +59,11 @@ class span:
             import torch
             self._rf = torch.profiler.record_function(PREFIX + self.name)
             self._rf.__enter__()
-        self._t0 = time.perf_counter_ns()
+        self.t0 = time.perf_counter_ns()
         return self
 
     def __exit__(self, *exc) -> bool:
-        self.ns = time.perf_counter_ns() - self._t0
+        self.ns = time.perf_counter_ns() - self.t0
         with _lock:
             _ns[self.name] = _ns.get(self.name, 0) + self.ns
             _n[self.name] = _n.get(self.name, 0) + 1

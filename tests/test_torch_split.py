@@ -2,12 +2,19 @@
 its host/device split, on the CPU: the GAF bytes with a CPU device front
 and the split pinned at share 0, left at its start of 0.35, and
 collapsed with device probes equal the JAX package's host-only
-map_files and the port's device=None run, over >= 8 arena batches; the
-port's NativeSeqReader cuts the batches where BSeqFile.read_batch does;
-the ported _probe_interval gives the JAX package's values; and a
-collapsed split's probe refreshes the device cost estimate t_dev.
-Inputs from tools/synth.py.  Tolerance 0."""
+map_files and the port's device=None run, over >= 8 arena batches,
+with the device share cut into one, two or more groups a batch (the
+front running the same bucket batches); the port's NativeSeqReader cuts
+the batches where BSeqFile.read_batch does; the ported _probe_interval
+gives the JAX package's values; a collapsed split's probe refreshes the
+device cost estimate t_dev; an exception in a queued native tail
+reaches the caller; and no tail of batch k is in flight when the reader
+hands out batch k + 2.  Inputs from tools/synth.py.  Tolerance 0."""
 import io
+import math
+import sys
+import threading
+import time
 
 import pytest
 import torch
@@ -26,6 +33,7 @@ from minigraph_tpu_torch.options import (MG_M_SHOW_UNMAP, IndexOptions,
 from minigraph_tpu_torch.seqio.bseq import BSeqFile, NativeSeqReader
 from minigraph_tpu_torch.tools.synth import (make_reference, simulate_reads,
                                              write_bubble_rgfa, write_fasta)
+from minigraph_tpu_torch.utils import trace
 
 torch.set_num_threads(1)
 
@@ -67,12 +75,12 @@ def files(tmp_path_factory):
     return gfa, fa, gi, want.getvalue()
 
 
-def front_run(files, state, batch_bp=BATCH_BP, pad_len=1024):
+def front_run(files, state, batch_bp=BATCH_BP, pad_len=1024, bsz=8):
     """map_reads with a CPU front on one small bucket and the given
     split state; returns (GAF text, stats, split state)."""
     _, fa, gi, _ = files
     mo = opts(batch_bp)
-    front = DeviceFront(gi, mo, device="cpu", buckets=((pad_len, 8),),
+    front = DeviceFront(gi, mo, device="cpu", buckets=((pad_len, bsz),),
                         chain_window=64)
     if state is not None:
         front._split_state = state
@@ -81,26 +89,79 @@ def front_run(files, state, batch_bp=BATCH_BP, pad_len=1024):
     return out.getvalue(), st, front._split_state
 
 
+# the device share's groups a batch: (the bucket's batch size, reads a
+# tail worker in C, so n_threads = 2 times it a group); ~6 reads a batch
+GROUPS = {"one": (8, 32), "two": (2, 2), "many": (1, 1)}
+
+
+def record_groups(monkeypatch):
+    """Wrap the open split's group submits: a list a batch of (reads,
+    bucket batches the front ran) a group."""
+    batches = []
+    real_open, real_submit = mapper._open_split_submit, mapper._submit_group
+
+    def open_submit(*a, **k):
+        batches.append([])
+        return real_open(*a, **k)
+
+    def submit_group(front, st, group):
+        n0 = front.n_batches
+        h = real_submit(front, st, group)
+        batches[-1].append((len(group), front.n_batches - n0))
+        return h
+    monkeypatch.setattr(mapper, "_open_split_submit", open_submit)
+    monkeypatch.setattr(mapper, "_submit_group", submit_group)
+    return batches
+
+
+@pytest.mark.parametrize("groups", ["one", "two", "many"])
 @pytest.mark.parametrize("state", ["pinned", "start", "collapsed"])
-def test_split_gaf_matches_host(files, state):
+def test_split_gaf_matches_host(files, state, groups, monkeypatch):
     init = {"pinned": {"share": 0.0, "t_host": None, "t_dev": None},
             "start": None,
             "collapsed": {"share": 1.0, "collapsed": True, "t_host": None,
                           "t_dev": None}}[state]
+    bsz, per_thread = GROUPS[groups]
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", per_thread)
+    batches = record_groups(monkeypatch)
     # pinned: a bucket that takes the long read too, so the host maps no
     # eligible read, measures no cost and the share stays at 0
-    got, st, split = front_run(files, init,
+    got, st, split = front_run(files, init, bsz=bsz,
                                pad_len=2048 if state == "pinned" else 1024)
     assert got == files[3]
     assert st["n_arena"] >= 8, st
     n_reads = st["n_share_dev"] + st["n_share_host"]
     assert n_reads == 49 - 1, st                  # all but the empty read
+    # each group whole bucket batches, the fewest that give the two
+    # workers per_thread reads each (the batch's last group what is
+    # left), and the front runs the batches one submit of the batch's
+    # device share would: one a bsz reads, the last one partial
+    target = 2 * per_thread
+    assert st.get("n_tail_groups", 0) == sum(map(len, batches)), st
+    for grp in batches:
+        r = sum(n for n, _ in grp)
+        assert sum(b for _, b in grp) == math.ceil(r / bsz), grp
+        assert len(grp) == math.ceil(math.ceil(r / bsz)
+                                     / math.ceil(target / bsz)), grp
+        for n, b in grp[:-1]:
+            assert n % bsz == 0 and n >= target > n - bsz, grp
+    if state != "collapsed":
+        most = max(map(len, batches))
+        assert most == {"one": 1, "two": 2}.get(groups, most) \
+            and (groups != "many" or most >= 3), batches
     if state == "pinned":
         assert st["n_share_host"] == 0 and split["share"] == 0.0, st
         assert st["n_device"] + st["n_fallback"] + st["n_chain_unsure"] \
             == 48, st
         assert st["n_device"] >= 16, st
-        assert st["n_batches"] == st["n_arena"], st
+        assert st["n_batches"] == sum(math.ceil(sum(n for n, _ in g) / bsz)
+                                      for g in batches), st
+        if groups == "one":
+            assert st["n_batches"] == st["n_arena"], st
+        # the reads the front flagged or could not chain took the
+        # worker's collect, none the per-read path
+        assert st["n_fallback"] + st["n_chain_unsure"] > 0, st
+        assert st["n_perread"] == 0, st
     elif state == "start":
         assert split["t_dev"] is not None and split["t_host"] is not None
         assert st["n_share_dev"] > 0 and st["n_share_host"] > 1, st
@@ -119,6 +180,145 @@ def test_collapsed_probe_refreshes_t_dev(files):
     assert got == files[3]
     assert st["n_arena"] >= 16 and st["n_probes"] >= 2, st
     assert split["t_dev"] is not None and split["t_host"] is not None
+
+
+def _front_batches(buckets, qlen, reads):
+    """The bucket batches front.submit runs for `reads`: a sorted list
+    of tuples of arena indices."""
+    by = {}
+    for k in reads:
+        pad, bsz = next(b for b in sorted(buckets) if qlen[k] <= b[0])
+        by.setdefault((pad, bsz), []).append(k)
+    return sorted(tuple(ks[i: i + bsz]) for (_, bsz), ks in by.items()
+                  for i in range(0, len(ks), bsz))
+
+
+@pytest.mark.parametrize("case,want", [
+    ("short", [4, 4, 2]),            # 1024 bucket: a read weighs 1
+    ("long", [40]),                  # 4096 bucket: 1/16, one group
+    ("mixed", [4, 8, 18])])           # a group closes on its weight
+def test_tail_groups_weigh_the_buckets(monkeypatch, case, want):
+    """_tail_groups on two buckets, two tail threads of 2 reads (a
+    group's weight 4): groups of whole bucket batches that together run
+    the batches one submit of the share runs, a read of the 4096 bucket
+    weighing (1024 / 4096)^2."""
+    import numpy as np
+
+    class Front:
+        buckets = ((1024, 4), (4096, 2))
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 2)
+    qlen = {"short": [500] * 10, "long": [3000] * 40,
+            "mixed": [500] * 4 + [3000] * 4 + [500] * 6 + [3000] * 16}[case]
+    qlen = np.array(qlen + [0])
+    cand = list(range(len(qlen) - 1))
+    groups = mapper._tail_groups(Front, cand, qlen, 2)
+    assert [len(g) for g in groups] == want
+    assert sorted(k for g in groups for k in g) == cand
+    got = sorted(b for g in groups
+                 for b in _front_batches(Front.buckets, qlen, g))
+    assert got == _front_batches(Front.buckets, qlen, cand)
+
+
+def test_tail_exception_reaches_the_caller(files, monkeypatch):
+    """A native tail that raises on the tail worker: map_reads raises it
+    on its own thread, within a time limit, the worker is gone and the
+    interpreter's switch interval is what it was."""
+    switch = sys.getswitchinterval()
+    real = mapper.map_batch_native
+    calls = []
+
+    def failing(*a, **k):
+        calls.append(threading.current_thread().name)
+        if len(calls) == 3:
+            raise RuntimeError("tail failed")
+        return real(*a, **k)
+    monkeypatch.setattr(mapper, "map_batch_native", failing)
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
+    got = []
+
+    def run():
+        try:
+            front_run(files, {"share": 0.0, "t_host": None, "t_dev": None},
+                      pad_len=2048, bsz=2)
+        except BaseException as e:
+            got.append(e)
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+    th.join(timeout=120)
+    assert not th.is_alive(), "the file loop hangs"
+    assert len(got) == 1 and isinstance(got[0], RuntimeError), got
+    assert str(got[0]) == "tail failed" and calls[2] == "mgt-tail", calls
+    assert not any(t.name == "mgt-tail" and t.is_alive()
+                   for t in threading.enumerate())
+    assert sys.getswitchinterval() == switch
+
+
+def test_counts_exact_under_a_short_switch_interval(files, monkeypatch):
+    """The loop's thread and the tail worker both add to `stats` and to
+    the span registry: with a switch interval of 1 us and a group a
+    read, no count is lost (the reads add up, the tails' spans sum to
+    tail_ms) and the bytes hold."""
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
+    old = sys.getswitchinterval()
+    sys.setswitchinterval(1e-6)
+    try:
+        before = trace.snapshot()
+        got, st, _ = front_run(files, None, batch_bp=1 << 30, bsz=1)
+        after = trace.snapshot()
+    finally:
+        sys.setswitchinterval(old)
+    assert got == files[3]
+    assert st["n_share_dev"] + st["n_share_host"] == 48, st
+    assert st["n_share_host"] > 0 and st["n_tail_groups"] >= 8, st
+    tails = sum(after["span_ms"].get(t, 0.0) - before["span_ms"].get(t, 0.0)
+                for t in ("tail.host_share", "tail.device_share",
+                          "tail.probe"))
+    assert tails == pytest.approx(st["tail_ms"], rel=1e-9), st
+
+
+def test_no_tail_in_flight_two_batches_on(files, monkeypatch):
+    """The reader hands out batch k + 2 (and the prefetch recycles batch
+    k - 1's arena) only once no native tail of batch k is running: each
+    arena batch's tails end before the loop takes the next batch."""
+    real_read = NativeSeqReader.read_batch_arena
+    real_tail = mapper.map_batch_native
+    lock = threading.Lock()
+    handed, running, addr, bad = [], [], {}, []
+
+    def read_batch_arena(self, *a, **k):
+        with lock:
+            j = len(handed)
+            handed.append(j)
+            late = [i for i in running if i <= j - 2]
+            if late:
+                bad.append((j, late))
+        a = real_read(self, *a, **k)
+        if a is not None:
+            with lock:
+                addr[a[1]] = j
+        return a
+
+    def tail(*a, blob=None, **k):
+        with lock:
+            j = addr[blob[1]]
+            running.append(j)
+            if len(handed) - 1 >= j + 2:    # batch j + 2 read or reading
+                bad.append((len(handed) - 1, [j]))
+        try:
+            time.sleep(0.01)        # widen the window
+            return real_tail(*a, blob=blob, **k)
+        finally:
+            with lock:
+                running.remove(j)
+    monkeypatch.setattr(NativeSeqReader, "read_batch_arena",
+                        read_batch_arena)
+    monkeypatch.setattr(mapper, "map_batch_native", tail)
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
+    got, st, _ = front_run(files, {"share": 0.0, "t_host": None,
+                                   "t_dev": None}, pad_len=2048, bsz=2)
+    assert got == files[3] and st["n_arena"] >= 8
+    assert st["n_tail_groups"] > st["n_arena"], st
+    assert not bad, bad
 
 
 @pytest.mark.parametrize("max_bp", [1, 700, 3000, 1 << 30])

@@ -5,10 +5,13 @@ front's inner spans fit inside their parents; under a CPU torch.profiler
 the spans are "mg:" ranges of the exported trace, nested as named, and
 with no profiler record_function is never entered; the GAF bytes do
 not change with a profiler; the five attributes that portbench's traced
-run wraps still see every call; and stats["tail_dev_overlap_ms"]
-counts the part of each device-share tail that ran while the front's
-newest batch was still on the card.  A tiny synthetic graph, a CPU front on one small
-bucket, several arena batches a file."""
+run wraps still see every call; stats["tail_dev_overlap_ms"] counts
+the part of each device-share tail that ran while the front's newest
+batch was still on the card; in the open split the tail.* spans are
+the tail worker's and the front.* spans the loop thread's; and
+stats["submit_tail_overlap_ms"] counts the part of the front's submits
+during which the worker ran a tail call.  A tiny synthetic graph, a CPU
+front on one small bucket, several arena batches a file."""
 import io
 import json
 import math
@@ -172,11 +175,14 @@ def test_profiler_ranges_nested_and_bytes_unchanged(files, tmp_path):
     prof.export_chrome_trace(str(path))
     rg = _ranges(json.loads(path.read_text())["traceEvents"])
     # the profiler records the thread that started it: the reader's
-    # prefetch thread (read.arena) has no range
+    # prefetch thread (read.arena) and the open split's tail worker
+    # (every tail.device_share, the open batches' tail.host_share) have
+    # no range; a collapsed batch maps its host share on the loop's
     main = set(LOOP + SUBMIT + STAGES + GATHER + (
-        "front.submit", "front.gather", "tail.host_share",
-        "tail.device_share")) - {"read.arena"}
+        "front.submit", "front.gather")) - {"read.arena"}
     assert set(rg) >= main and "read.arena" not in rg, rg
+    assert "tail.device_share" not in rg and d["span_n"]["tail.device_share"]
+    assert len(rg.get("tail.host_share", ())) < d["span_n"]["tail.host_share"]
     for parent, kids in (("front.submit", SUBMIT),
                          ("front.dispatch", STAGES),
                          ("front.gather", GATHER)):
@@ -235,7 +241,7 @@ def test_wrapped_attributes_see_every_call(files, monkeypatch):
 
 class _Event:
     """A batch's end event on a host clock: done from `t_done` on (busy
-    until the batch is gathered, or always with `always`)."""
+    until the batch's gather begins, or always with `always`)."""
 
     def __init__(self, always):
         self.t_done = math.inf
@@ -273,7 +279,7 @@ def stub_front(gi, monkeypatch, always=False):
 
     def gather_flat(h):
         if not events[id(h)].always:
-            events[id(h)].t_done = -math.inf
+            events[id(h)].t_done = time.perf_counter()
         return real_gather(h)
     monkeypatch.setattr(front, "submit", submit)
     monkeypatch.setattr(front, "gather_flat", gather_flat)
@@ -288,12 +294,11 @@ def test_tail_overlap_counter(files, monkeypatch):
     assert got == want and st["n_arena"] >= 5
     dev = d["span_ms"]["tail.device_share"]
     assert st["tail_dev_overlap_ms"] == pytest.approx(dev, rel=1e-9)
-    # busy until gathered: batch k-1's tail overlaps batch k, the last
-    # batch's tail (after the file's end) overlaps nothing
+    # one group an arena batch: its tail is queued after its own gather,
+    # with no batch on the card
     got, st, d = run(files, stub_front(gi, monkeypatch))
-    assert got == want
-    assert 0 < st["tail_dev_overlap_ms"] < d["span_ms"]["tail.device_share"]
-    # one arena batch a file: its tail runs after its own gather
+    assert got == want and st["n_tail_groups"] == st["n_arena"] >= 5
+    assert st["tail_dev_overlap_ms"] == 0
     got, st, d = run(files, stub_front(gi, monkeypatch), batch_bp=1 << 30)
     assert got == want and st["n_arena"] == 1
     assert d["span_n"]["tail.device_share"] == 1
@@ -302,6 +307,56 @@ def test_tail_overlap_counter(files, monkeypatch):
     _, st, d = run(files, new_front(gi))
     assert st["tail_dev_overlap_ms"] == 0
     assert "tail_dev_overlap_ms" not in d       # stats only, no registry
+    # one bucket batch a group, busy until gathered: each group's tail
+    # is queued after its own gather, before the next group's submit,
+    # with no batch on the card; the card always busy: the whole tails
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
+    got, st, d = run(files, stub_front(gi, monkeypatch), batch_bp=1 << 30)
+    assert got == want and st["n_arena"] == 1 and st["n_tail_groups"] == 5
+    assert d["span_n"]["tail.device_share"] == 5
+    assert st["tail_dev_overlap_ms"] == 0
+    got, st, d = run(files, stub_front(gi, monkeypatch, always=True),
+                     batch_bp=1 << 30)
+    assert got == want and st["n_tail_groups"] == 5
+    dev = d["span_ms"]["tail.device_share"]
+    assert st["tail_dev_overlap_ms"] == pytest.approx(dev, rel=1e-9)
+
+
+def test_open_split_threads_and_submit_overlap(files, monkeypatch):
+    """In the open split the tail.* spans are entered on the tail worker
+    only and the front.* spans on the loop's thread only; the submits'
+    overlap with the worker's calls is at most the front.submit spans,
+    and 0 with one group and no host share (nothing runs on the worker
+    while the one submit does)."""
+    fa, gi, want = files
+    seen = {}
+
+    class span(trace.span):
+        __slots__ = ()
+
+        def __enter__(self):
+            seen.setdefault(self.name, set()).add(
+                threading.current_thread().name)
+            return super().__enter__()
+    monkeypatch.setattr(trace, "span", span)
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
+    got, st, d = run(files, new_front(gi), batch_bp=1 << 30)
+    assert got == want and st["n_arena"] == 1
+    assert st["n_tail_groups"] == math.ceil(st["n_share_dev"] / 8) >= 2
+    assert {"tail.host_share", "tail.device_share", "front.submit",
+            "front.gather"} <= set(seen)
+    loop = threading.current_thread().name
+    for name, threads in seen.items():
+        if name.startswith("tail."):
+            assert threads == {"mgt-tail"}, (name, threads)
+        elif name.startswith("front."):
+            assert threads == {loop}, (name, threads)
+    assert 0 < st["submit_tail_overlap_ms"] <= d["span_ms"]["front.submit"]
+    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 32)
+    got, st, d = run(files, new_front(gi, PINNED), batch_bp=1 << 30)
+    assert got == want and st["n_tail_groups"] == 1
+    assert st["n_share_host"] == 0 and d["span_n"]["front.submit"] == 1
+    assert st["submit_tail_overlap_ms"] == 0
 
 
 @pytest.mark.parametrize("case,t_done,want", [
@@ -323,6 +378,24 @@ def test_overlap_ms_cases(files, monkeypatch, case, t_done, want):
         mark = _Event(False)
         mark.t_done = t_done
     assert front.overlap_ms(mark, 10.0) == pytest.approx(want), case
+
+
+@pytest.mark.parametrize("case,t_done,want", [
+    ("finished before the call", -0.002, 0.0),
+    ("finished 4 ms into it", 0.004, 4.0),
+    ("finished after it ended", 0.012, 10.0),
+    ("still running now", math.inf, 10.0)])
+def test_overlap_ms_of_an_earlier_call(files, monkeypatch, case, t_done,
+                                       want):
+    """A 10 ms host call from 0 to 10 ms, its overlap read at 15 ms
+    (since_ms 15): the card's time from the batch's end to now puts the
+    end on the call's clock."""
+    fa, gi, _ = files
+    front = new_front(gi)
+    monkeypatch.setattr(front, "_now_mark", lambda: _Now(0.015))
+    mark = _Event(False)
+    mark.t_done = t_done
+    assert front.overlap_ms(mark, 10.0, 15.0) == pytest.approx(want), case
 
 
 def test_busy_mark_on_a_finished_batch(files):
@@ -424,8 +497,12 @@ def test_spanprof_profiles_the_cpu_front(files):
         cuda=False)
     d = delta(before, trace.snapshot())
     assert out.getvalue() == want
-    for name in set(d["span_n"]) - {"read.arena"}:
+    for name in set(d["span_n"]) - {"read.arena"} - set(TAILS):
         assert red["ranges"][name]["n"] == d["span_n"][name], name
+    # the open split's tails run on the tail worker: no range
+    assert "tail.device_share" not in red["ranges"]
+    assert red["ranges"].get("tail.host_share", {"n": 0})["n"] \
+        < d["span_n"]["tail.host_share"]
     assert red["busy_s"] == 0 and red["idle_s"] == red["window_s"] > 0
     rep = spanprof.report(st, red)
     assert rep["spans"]["front.gather"]["range_n"] \
