@@ -757,8 +757,9 @@ def device_run(gi, mo, reads, loop="native", n_host=0, pool=None):
     Returns (GAF text, stats)."""
     from minigraph_tpu_torch.mapping import mapper
     from minigraph_tpu_torch.mapping.device_front import DeviceFront
+    from minigraph_tpu_torch.mapping.split import ShareSplit
     front = DeviceFront(gi, mo, device="cuda")
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._split_state = ShareSplit(share=0.0)
     front._wfa_pool = pool
     buf, st = io.StringIO(), {}
 
@@ -1422,10 +1423,11 @@ def gwfa_map_run(gi, mo, reads_fa, front):
     from minigraph_tpu_torch.align.gwfa_device import DeviceGwfaPool
     from minigraph_tpu_torch.mapping.device_front import DeviceFront
     from minigraph_tpu_torch.mapping.mapper import map_reads
+    from minigraph_tpu_torch.mapping.split import ShareSplit
     fr = None
     if front:
         fr = DeviceFront(gi, mo, device="cuda")
-        fr._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        fr._split_state = ShareSplit(share=0.0)
     pool = DeviceGwfaPool(gi, device="cuda")
     pool.graph()
     buf, st = io.StringIO(), {}

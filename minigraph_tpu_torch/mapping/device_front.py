@@ -223,9 +223,6 @@ class DeviceFront:
         # the span of the newest submit (utils/trace.py span: its t0 and
         # ns): the file loop's overlap of submits with native tails
         self.last_submit_span = None
-        # the pack's end event of the newest bucket batch submitted (None
-        # on the CPU): busy_mark reads it
-        self.last_end = None
         self._warm = set()
         # the -c gap pool of the Python reader loop (align/cigar_device.py
         # DeviceWfaPool), made by the loop at its first use
@@ -343,15 +340,12 @@ class DeviceFront:
     def _pack(self, full, n_a, n_q, overflow, sure, max_occ, bsz, acap,
               qcap, t0):
         """Stage 5 (_pack_body) in its span and stage mark.  Returns
-        (buffer, layout); the stage's end mark becomes last_end on the
-        card."""
+        (buffer, layout)."""
         with trace.span("front.pack"):
             buf, layout = self._pack_body(full, n_a, n_q, overflow, sure,
                                           max_occ, bsz, acap, qcap)
             end = self.timer.mark()
         self.timer.add("pack", t0, end)
-        if self.timer.cuda:
-            self.last_end = end
         return buf, layout
 
     @staticmethod
@@ -446,39 +440,6 @@ class DeviceFront:
             # cnt >= occ_max1 repeat test cannot be reproduced
             return False
         return True
-
-    def busy_mark(self):
-        """At the start of a host call: the end event of the newest
-        bucket batch submitted where it still runs on the card, else
-        None (always on the CPU)."""
-        end = self.last_end
-        return None if end is None or end.query() else end
-
-    def overlap_ms(self, mark, call_ms: float,
-                   since_ms: float = None) -> float:
-        """The ms of a host call of call_ms, begun since_ms before now
-        (call_ms: it has just ended) with `mark` (busy_mark) taken at
-        its start or before, that ran while the card was still on the
-        batch: 0 where it had finished before, the whole call where it
-        still runs, else the time from the call's start to the batch's
-        end, which lies the card's time from the batch's end to an
-        event recorded now before now: exact where the card has no
-        other work when the event is recorded, a lower bound
-        otherwise."""
-        if mark is None:
-            return 0.0
-        if not mark.query():
-            return call_ms
-        since = call_ms if since_ms is None else since_ms
-        now = self._now_mark()
-        now.synchronize()
-        return min(call_ms, max(0.0, since - mark.elapsed_time(now)))
-
-    @staticmethod
-    def _now_mark():
-        ev = torch.cuda.Event(enable_timing=True)
-        ev.record()
-        return ev
 
     def submit(self, seqs: List[str]):
         """Run the device stages for a list of reads (str, bytes or

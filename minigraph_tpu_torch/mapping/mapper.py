@@ -14,7 +14,8 @@ in groups of whole bucket batches, and one worker thread runs the
 batch's native calls in turn (the host share's, then each group's
 chains or anchors through the native tail) while the loop's thread
 submits the next group, so the submit and the tails overlap within the
-batch.  The host share follows the measured per-read costs so that both
+batch.  One controller (mapping/split.py ShareSplit) sets the host
+share of both loops from the measured per-read costs so that both
 finish together; when the device does not pay, the split collapses to
 the host with a device probe every few batches.  In frag mode the loop
 groups mates in C, applies the pair orientation in place on the arena
@@ -85,6 +86,7 @@ from .seeds import (collect_minimizers, collect_minimizers_device,
                     collect_seed_hits_heap)
 from .select import (gchain_drop_flt, gchain_flt_sub, gchain_set_mapq,
                      gchain_set_parent)
+from .split import ShareSplit
 
 U32 = 0xFFFFFFFF
 # spliced chains: no preset of the command line sets the flag, and the
@@ -421,49 +423,26 @@ def map_one(gi: MinimizerIndex, seq: str, opt: MapOptions,
     return map_frag(gi, [len(seq)], [seq], opt, qname)
 
 
-def _ema(prev, x, alpha=0.4):
-    """Exponential moving average with None start."""
-    return x if prev is None else prev + alpha * (x - prev)
-
-
-def _probe_interval(split):
-    """Batches between device probes while the host owns the work.
-
-    A probe maps ~a quarter batch through the device path, costing
-    ~(n/4)*t_dev against interval*n*t_host of host work; sizing the
-    interval to ~5x the cost ratio caps probe overhead at ~5%
-    regardless of workload."""
-    td, th = split.get("t_dev"), split.get("t_host")
-    if not td or not th:
-        return 8
-    return max(8, min(256, int(5.0 * td / th)))
-
-
 def _count(stats, key, n):
     if stats is not None:
         stats[key] = stats.get(key, 0) + n
 
 
-def _timed_native(stats, name, *args, front=None, **kw):
+def _timed_native(stats, name, *args, **kw):
     """map_batch_native in the span `name` (tail.host_share,
     tail.device_share or tail.probe), its host time added to
-    stats["tail_ms"].  For the device share, `front`: the part of the
-    call that ran while the front's newest batch was still on the card
-    adds to stats["tail_dev_overlap_ms"] (DeviceFront.overlap_ms)."""
-    mark = front.busy_mark() if front is not None else None
+    stats["tail_ms"]."""
     with trace.span(name) as sp:
         res = map_batch_native(*args, **kw)
     _count(stats, "tail_ms", sp.ms)
-    if front is not None:
-        _count(stats, "tail_dev_overlap_ms", front.overlap_ms(mark, sp.ms))
     return res
 
 
 def _map_host_share(gi, opt, n_threads, split, stats, blob,
                     loop_thread=None):
     """The host share of an arena batch (every read not in the blob's
-    skip list) in one native call; with a split, its per-read cost
-    updates the host estimates t_host and t_host_cpu.  loop_thread:
+    skip list) in one native call; with a split (ShareSplit), its cost
+    goes to split.host_cost.  loop_thread:
     the ident of a thread that runs other work meanwhile (the loop's,
     where this runs on the tail worker), whose CPU time the estimates
     leave out."""
@@ -489,10 +468,8 @@ def _map_host_share(gi, opt, n_threads, split, stats, blob,
     if split is not None:
         cpu = cpu_s() - c0
         wall = time.perf_counter() - t0
-        split["t_host"] = _ema(
-            split["t_host"],
-            (wall if n_threads == 1 else max(wall, cpu)) / n_host)
-        split["t_host_cpu"] = _ema(split.get("t_host_cpu"), cpu / n_host)
+        split.host_cost(wall if n_threads == 1 else max(wall, cpu), cpu,
+                        n_host)
     return res
 
 
@@ -561,31 +538,15 @@ def _submit_group(front, st, group):
     return handle
 
 
-def _device_share_tail(gi, opt, n_threads, stats, blob, fr_flat):
-    """One group's device-share tail (on the tail worker): the front's
-    chains where it delivered them, the in-worker collect where it
-    flagged a read, never the per-read path; its host time added to
-    stats["tail_ms"].  Returns (the results, the call's span)."""
-    with trace.span("tail.device_share") as sp:
-        res = map_batch_native(gi, opt, None, n_threads, blob=blob,
-                               fr_flat=fr_flat)
-    _count(stats, "tail_ms", sp.ms)
-    return res, sp
-
-
 def _open_split_submit(gi, opt, front, split, n_threads, n, sq_addr,
-                       sq_off, nm_addr, nm_off, qlen, bad, stats, tails):
+                       sq_off, nm_addr, nm_off, qlen, bad, cand, stats,
+                       tails):
     """Phase 1 of the open host/device split for one arena batch: queue
     the host share's native call on the tail worker `tails` (it needs
     nothing from the card, so it runs while the loop submits), cut the
-    device share into groups (_tail_groups) and submit the first
-    (asynchronous on the card).  split["share"] is the host's fraction
-    of the eligible reads.  Returns the batch's state for
-    _open_split_finish."""
-    elig = [k for k in range(n) if not bad[k]
-            and front.eligible(opt, 1, int(qlen[k]))]
-    n_steal = int(len(elig) * split["share"])
-    cand = elig[n_steal:]
+    device share `cand` (arena indices) into groups (_tail_groups) and
+    submit the first (asynchronous on the card).  Returns the batch's
+    state for _open_split_finish."""
     # host share: everything not sent to the device
     host_skip = np.asarray(bad).copy()
     host_skip[cand] = True
@@ -613,11 +574,11 @@ def _open_split_submit(gi, opt, front, split, n_threads, n, sq_addr,
 
 def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
     """Phase 2: for each group, submit it (the first is submitted),
-    gather it and queue its device-share tail on the tail worker (the
-    busy mark of the front's newest batch taken as it is queued), so
+    gather it and queue its device-share tail on the tail worker, so
     that the tail runs while the next group is submitted; then wait for
-    the worker, merge the results, count the overlaps, update the share
-    controller and return the batch's results.  The gather waits for
+    the worker, merge the results, count the submits' overlap with the
+    tails, hand the device share's cost and the batch's end to the
+    split and return the batch's results.  The gather waits for
     the group's copy, which trails its last launch by little: the card
     runs a group's stages as they are launched, and the host's submit
     is the longer part.  The worker touches arena bytes and numpy views
@@ -625,7 +586,7 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
     thread."""
     n, cand, groups = st["n"], st["cand"], st["groups"]
     tails = st["tails"]
-    jobs = []           # (job, busy mark, the group's views) a group
+    jobs = []           # (job, the group's views) a group
     gather_wall = 0.0
     handle = st.pop("handle")
     for j, group in enumerate(groups):
@@ -640,64 +601,33 @@ def _open_split_finish(gi, opt, front, split, n_threads, st, stats):
         dev_skip[garr] = False
         dskipw = np.nonzero(dev_skip)[0]
         gather_wall += time.perf_counter() - t0
-        mark = front.busy_mark()
-        jobs.append((tails.put(_device_share_tail, gi, opt, n_threads,
-                               stats, st["blob"] + (
+        # the front's chains where it delivered them, the in-worker
+        # collect where it flagged a read, never the per-read path
+        jobs.append((tails.put(_timed_native, stats, "tail.device_share",
+                               gi, opt, None, n_threads,
+                               blob=st["blob"] + (
                                    dskipw if len(dskipw) else None,),
-                               fr_flat), mark, fr_flat))
+                               fr_flat=fr_flat), fr_flat))
     host_job = st["host_job"]
-    calls = [job for job, _, _ in jobs]
+    calls = [job for job, _ in jobs]
     if host_job is not None:
         calls.insert(0, host_job)
     tails.wait(calls)
     res = st["host_res"] if host_job is None else host_job.result
     tail_ns = 0
-    for (job, mark, _), group in zip(jobs, groups):
-        dres, sp = job.result
+    for (job, _), group in zip(jobs, groups):
         for k in group:
-            res[k] = dres.get(k)
+            res[k] = job.result.get(k)
         tail_ns += job.t1 - job.t0
-        # the card has no work left (the last gather waited for it): the
-        # batch's end on the host's clock is exact
-        _count(stats, "tail_dev_overlap_ms", front.overlap_ms(
-            mark, sp.ms, (time.perf_counter_ns() - sp.t0) / 1e6))
     # the submits' spans against the worker's calls (one thread: the
     # calls do not overlap each other)
     _count(stats, "submit_tail_overlap_ms", sum(
         max(0, min(b, job.t1) - max(a, job.t0)) for a, b in st["submits"]
         for job in calls) / 1e6)
     _count(stats, "n_tail_groups", len(groups))
-    # a build or first run is not the steady cost
-    if groups and not st["cold"]:
-        split["t_dev"] = _ema(
-            split["t_dev"],
-            (st["sub_wall"] + gather_wall + tail_ns / 1e9) / len(cand))
-    # ---- controller: share balance + collapse test
-    now = time.perf_counter()
-    t_last = split.get("t_last")
-    split["t_last"] = now
-    if t_last is not None and n > 0 and split["share"] < 1.0:
-        cyc = now - t_last
-        if cyc / n < 0.05:      # not a build cycle
-            split["rate_mix"] = _ema(split.get("rate_mix"), n / cyc)
-            split["nb_mix"] = split.get("nb_mix", 0) + 1
-    if split["t_dev"] and split["t_host"]:
-        tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
-        share = 1.0 if tgt > 0.95 else min(0.9, max(0.0, tgt))
-        if tgt > 0.95:
-            split["hi_tgt"] = split.get("hi_tgt", 0) + 1
-        else:
-            split["hi_tgt"] = 0
-        if split.get("hi_tgt", 0) >= 2:
-            split["collapsed"] = True
-            share = 1.0
-        elif (share < 1.0 and split.get("rate_mix")
-              and split.get("nb_mix", 0) >= 3
-              and split.get("t_host_cpu")
-              and 1.0 / split["t_host_cpu"] > 1.08 * split["rate_mix"]):
-            split["collapsed"] = True
-            share = 1.0
-        split["share"] = share
+    split.device_cost(st["sub_wall"] + gather_wall + tail_ns / 1e9,
+                      len(cand), st["cold"])
+    split.end_batch(n)
     return res
 
 
@@ -905,12 +835,11 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
     (engine bails, zero-length, over max_qlen).  In frag mode each arena
     batch maps as fragments (_map_arena_frags; no device front).
 
-    With a device front (front and split given) the loop runs the open
-    split until the controller collapses it; collapsed, it maps every
-    read on the host and every _probe_interval-th arena batch probes a
-    quarter batch through the device (submitted before the host call, so
-    the device runs while the host maps) to keep t_dev fresh; two probes
-    in a row with a finish-together target <= 0.45 reopen the split.
+    With a device front (front and split, a ShareSplit, given) the loop
+    runs the open split until the controller collapses it; collapsed,
+    it maps every read on the host, and a probe batch's device reads
+    are submitted before the host call, so the device runs while the
+    host maps, and handed to the native tail after it.
     `tails`: the open split's _TailWorker (with a front), idle again
     whenever the loop takes the next arena batch (the prefetch recycles
     batch k-1's arena while batch k+1 maps)."""
@@ -955,44 +884,43 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
                 int(sq_off[k + 1] - sq_off[k])).decode("latin-1")
             return name, seq
 
-        if front is not None and not split.get("collapsed"):
-            # open split: the host share and the device share's groups
-            # through the tail worker, idle again before the results are
-            # emitted, in read order
-            st = _open_split_submit(gi, opt, front, split, n_threads, n,
-                                    sq_addr, sq_off, nm_addr, nm_off, qlen,
-                                    bad, stats, tails)
-            res = _open_split_finish(gi, opt, front, split, n_threads, st,
-                                     stats)
-            _emit_batch(res, n, rec, bad)
-            continue
+        cand = []
+        if front is not None:
+            elig = [k for k in range(n) if not bad[k]
+                    and front.eligible(opt, 1, int(qlen[k]))]
+            n_dev = split.plan(n, len(elig))
+            if not split.collapsed:
+                # open split: the host share and the device share's
+                # groups through the tail worker, idle again before the
+                # results are emitted, in read order
+                st = _open_split_submit(gi, opt, front, split, n_threads,
+                                        n, sq_addr, sq_off, nm_addr, nm_off,
+                                        qlen, bad, elig[len(elig) - n_dev:],
+                                        stats, tails)
+                res = _open_split_finish(gi, opt, front, split, n_threads,
+                                         st, stats)
+                _emit_batch(res, n, rec, bad)
+                continue
+            cand = elig[:n_dev]         # a probe's reads, if any
 
         skip = bad
-        handle = cand = None
-        sub_wall = 0.0
-        probe_cold = False
-        if front is not None:
-            split["nb"] = split.get("nb", 0) + 1
-            if split["nb"] % _probe_interval(split) == 0:
-                cand = [k for k in range(n) if not bad[k]
-                        and front.eligible(opt, 1, int(qlen[k]))]
-                cand = cand[:max(8, n // 4)]
-                if cand:
-                    t_sub0 = time.perf_counter()
-                    handle = front.submit([rec(k)[1] for k in cand])
-                    sub_wall = time.perf_counter() - t_sub0
-                    probe_cold = front.last_submit_cold
-                    skip = skip.copy()
-                    skip[cand] = True
-                    _count(stats, "n_probes", 1)
-                    _count(stats, "n_share_dev", len(cand))
+        if cand:
+            t_sub0 = time.perf_counter()
+            handle = front.submit([rec(k)[1] for k in cand])
+            sub_wall = time.perf_counter() - t_sub0
+            probe_cold = front.last_submit_cold
+            skip = skip.copy()
+            skip[cand] = True
+            _count(stats, "n_probes", 1)
+            _count(stats, "n_share_dev", len(cand))
         res = _map_host_share(gi, opt, n_threads, split, stats,
                               (n, sq_addr, sq_off, nm_addr, nm_off,
                                np.nonzero(skip)[0]))
-        if handle is not None:
+        if cand:
             t0 = time.perf_counter()
-            fr_map = {k: fr for k, fr in zip(cand, front.gather(handle))
-                      if fr is not None}
+            garr = np.asarray(cand)
+            fr_flat = [(garr[sel], fb)
+                       for sel, fb in front.gather_flat(handle)]
             # the probe's reads through the native tail: the front's
             # chains or anchors where it delivered them, the in-worker
             # collect where it flagged a read
@@ -1002,26 +930,14 @@ def _map_file_native(gi, opt, rdr, out, n_threads, front=None, split=None,
                                  n_threads,
                                  blob=(n, sq_addr, sq_off, nm_addr, nm_off,
                                        np.nonzero(pskip)[0]),
-                                 fr_map=fr_map)
-            if fr_map and not probe_cold:
-                split["t_dev"] = _ema(
-                    split["t_dev"],
-                    (sub_wall + time.perf_counter() - t0) / len(cand))
-                if split["t_host"]:
-                    tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
-                    # hysteresis: one probe biased low (the device ran
-                    # during the host call) must not reopen the split
-                    if tgt <= 0.45:
-                        split["reopen"] = split.get("reopen", 0) + 1
-                        if split["reopen"] >= 2:
-                            split["collapsed"] = False
-                            split["rate_mix"] = None
-                            split["nb_mix"] = 0
-                            split["reopen"] = 0
-                    else:
-                        split["reopen"] = 0
+                                 fr_flat=fr_flat)
+            if fr_flat:
+                split.device_cost(sub_wall + time.perf_counter() - t0,
+                                  len(cand), probe_cold)
             for k in cand:
                 res[k] = ptxt.get(k)
+        if front is not None:
+            split.end_batch(n)
         _emit_batch(res, n, rec, bad)
 
 
@@ -1046,63 +962,6 @@ def _read_batch_frag(fps, chunk_size: int):
         if size >= chunk_size:
             break
     return out
-
-
-def _update_split(split, h_wall, h_cpu, h_n):
-    """The Python loop's share controller after a batch's host share
-    (h_n reads in h_wall s of wall and h_cpu s of CPU time): the host's
-    cost estimates, the blended rate of the batch cycle, then the
-    finish-together share, collapsed while the device does not pay and
-    reopened after two probes in a row say it does."""
-    if h_n:
-        split["t_host"] = _ema(split["t_host"], h_wall / h_n)
-        split["t_host_cpu"] = _ema(split.get("t_host_cpu"), h_cpu / h_n)
-    # blended throughput over the last batch cycle (reads of every path
-    # over the wall since the previous balance point); build-length
-    # cycles are skipped
-    now = time.perf_counter()
-    t_last = split.get("t_last")
-    n_cyc = split.get("n_since", 0)
-    split["t_last"] = now
-    split["n_since"] = 0
-    if (t_last is not None and n_cyc > 0 and not split.get("collapsed")
-            and split["share"] < 1.0):
-        cyc = now - t_last
-        if cyc / n_cyc < 0.05:
-            split["rate_mix"] = _ema(split.get("rate_mix"), n_cyc / cyc)
-            split["nb_mix"] = split.get("nb_mix", 0) + 1
-    if not (split["t_dev"] and split["t_host"]):
-        return
-    # balance: the host takes t_dev / (t_dev + t_host) of the work
-    tgt = split["t_dev"] / (split["t_dev"] + split["t_host"])
-    share = 1.0 if tgt > 0.95 else min(0.9, max(0.0, tgt))
-    # a device read costing over 19x a host read twice in a row does
-    # not pay: collapse without waiting for the blended rate
-    split["hi_tgt"] = split.get("hi_tgt", 0) + 1 if tgt > 0.95 else 0
-    if split.get("collapsed"):
-        if tgt <= 0.45:
-            split["reopen"] = split.get("reopen", 0) + 1
-            if split["reopen"] >= 2:
-                split["collapsed"] = False
-                split["rate_mix"] = None
-                split["nb_mix"] = 0
-                split["reopen"] = 0
-            else:
-                share = 1.0
-        else:
-            split["reopen"] = 0
-            share = 1.0
-    elif split["hi_tgt"] >= 2:
-        split["collapsed"] = True
-        share = 1.0
-    elif (share < 1.0 and split.get("rate_mix")
-          and split.get("nb_mix", 0) >= 3 and split.get("t_host_cpu")
-          and 1.0 / split["t_host_cpu"] > 1.08 * split["rate_mix"]):
-        # the blend runs slower than one host thread alone: the host
-        # and the device path's host work contend for the cores
-        split["collapsed"] = True
-        share = 1.0
-    split["share"] = share
 
 
 # --- the fork pool (kt_for's analog; the index shared copy-on-write) ---
@@ -1216,8 +1075,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
             and not (opt.flag & _EMIT_BAIL_NOCIG):
         split = getattr(front, "_split_state", None)
         if split is None:
-            split = {"share": 0.35, "t_host": None, "t_dev": None}
-            front._split_state = split
+            split = front._split_state = ShareSplit()
     if (gwfa_pool is None and not dbg and len(fns) == 1
             and (not frag_mode or front is None)
             and _batch_mode_ok(opt.flag)
@@ -1245,7 +1103,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 and not (opt.flag & (_EMIT_BAIL_NOCIG | MG_M_HEAP_SORT
                                      | MG_M_INDEPEND_SEG | MG_M_NO_DIAG)))
     if not split_ok:
-        split = {"share": 0.35, "t_host": None, "t_dev": None}
+        split = None
     host_pool = ThreadPoolExecutor(max_workers=1) if split_ok else None
     host_batch_ok = (front is None and gwfa_pool is None and not dbg
                      and _batch_mode_ok(opt.flag)
@@ -1282,6 +1140,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 frags.append((j, i - j))
                 j = i
         handle = front_idx = host_fut = None
+        sub_wall, cold = 0.0, False
         if front is not None:
             front_idx = [fi for fi, (off, n_seg) in enumerate(frags)
                          if front.eligible(opt, n_seg, batch[off].l_seq)]
@@ -1295,16 +1154,10 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                     and fi not in elig
                     and not (opt.max_qlen > 0
                              and batch[off].l_seq > opt.max_qlen)]
-                n_steal = int(len(front_idx) * split["share"])
-                if n_steal >= len(front_idx):
-                    # the device does not pay: the host takes all, but
-                    # every _probe_interval-th batch probes a quarter
-                    # batch on the device
-                    split["nb"] = split.get("nb", 0) + 1
-                    probe = max(8, len(front_idx) // 4)
-                    n_steal = max(0, len(front_idx) - probe) \
-                        if split["nb"] % _probe_interval(split) == 0 \
-                        else len(front_idx)
+                n_steal = len(front_idx) - split.plan(len(frags),
+                                                      len(front_idx))
+                if split.collapsed and n_steal < len(front_idx):
+                    _count(stats, "n_probes", 1)
                 if n_steal > 0:
                     host_set += front_idx[:n_steal]
                     front_idx = front_idx[n_steal:]
@@ -1320,12 +1173,10 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 handle = front.submit(
                     [batch[frags[fi][0]].seq for fi in front_idx])
                 # the submit's host cost is part of a device read's
-                # price, charged to t_dev at the next gather
-                split["sub_wall"] = split.get("sub_wall", 0.0) \
-                    + time.perf_counter() - t_sub0
-                if front.last_submit_cold:
-                    split["sub_cold"] = True
-        return batch, frags, handle, front_idx, host_fut
+                # price, charged to t_dev at the batch's gather
+                sub_wall = time.perf_counter() - t_sub0
+                cold = front.last_submit_cold
+        return batch, frags, handle, front_idx, host_fut, sub_wall, cold
 
     def flip(batch, off):
         flip_pair(batch, off, pe_ori)
@@ -1339,7 +1190,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
     try:
         cur = _read_prep()
         while cur is not None:
-            batch, frags, handle, front_idx, host_fut = cur
+            batch, frags, handle, front_idx, host_fut, sub_wall, cold = cur
             cur = _read_prep()  # device and input run ahead of the tails
             front_res = None
             t_dev0 = time.perf_counter()
@@ -1379,15 +1230,11 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                          for fi, fr in front_res.items()
                          if fr is not None and frags[fi][1] == 1]
                 batch_txt = _timed_native(stats, "tail.device_share", gi,
-                                          opt, items, n_threads, front=front)
-                if items:
-                    if split.pop("sub_cold", False):
-                        split.pop("sub_wall", None)  # a build, not a cost
-                    else:
-                        split["t_dev"] = _ema(
-                            split["t_dev"],
-                            (split.pop("sub_wall", 0.0)
-                             + time.perf_counter() - t_dev0) / len(items))
+                                          opt, items, n_threads)
+                if split is not None:
+                    split.device_cost(
+                        sub_wall + time.perf_counter() - t_dev0, len(items),
+                        cold)
                 # reads the front flagged: the native host path
                 flagged = [(fi, batch[frags[fi][0]].name,
                             batch[frags[fi][0]].seq, None)
@@ -1395,7 +1242,7 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                 if flagged:
                     batch_txt.update(_timed_native(
                         stats, "tail.device_share", gi, opt, flagged,
-                        n_threads, host_collect=True, front=front))
+                        n_threads, host_collect=True))
             elif host_batch_ok:
                 items = []
                 for fi, (off, n_seg) in enumerate(frags):
@@ -1418,16 +1265,14 @@ def _map_file_frag(gi, fns: List[str], opt: MapOptions, out,
                     batch_txt = _timed_native(stats, "tail.host_share",
                                               gi, opt, items, n_threads,
                                               host_collect=True)
-            if split_ok:
-                # reads since the last balance point (a cycle can span
-                # batches that ran without a host share)
-                split["n_since"] = split.get("n_since", 0) + len(frags)
             if host_fut is not None:
                 h_txt, h_wall, h_cpu, h_n = host_fut.result()
                 _count(stats, "tail_ms", h_wall * 1e3)
                 batch_txt = h_txt if batch_txt is None \
                     else {**batch_txt, **h_txt}
-                _update_split(split, h_wall, h_cpu, h_n)
+                split.host_cost(h_wall, h_cpu, h_n)
+            if split is not None:
+                split.end_batch(len(frags))
             if batch_txt is not None:
                 _count(stats, "n_perread", sum(
                     1 for v in batch_txt.values() if v is None))
@@ -1530,10 +1375,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     in frag mode with several files, the files in step as one group.
 
     front: a DeviceFront on `gi`, or None to map every read on the host.
-    The split's learned state lives on the front as front._split_state
-    and carries over from file to file; a caller may set it before the
-    first file, e.g. {"share": 0.0, "t_host": None, "t_dev": None} to
-    send every eligible read to the device.  That pin holds only while
+    The split's learned state (mapping/split.py ShareSplit) lives on the
+    front as front._split_state and carries over from file to file; a
+    caller may set it before the first file, e.g. ShareSplit(share=0.0)
+    to send every eligible read to the device.  That pin holds only while
     every read is eligible: the host measures no cost while it maps no
     eligible read, and the share stays until both costs have been
     measured; a pinned caller checks stats["n_share_host"] == 0.
@@ -1545,18 +1390,16 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     (n_probes), and with a front the final share and collapsed (where
     the loop ran a split), the front's counters and per-stage device
     times (stage_ms).  It also receives the process's totals of the
-    spans (utils/trace.py; span_ms, span_n: ms and calls by name) and
-    tail_dev_overlap_ms (the ms of device-share tails that ran while
-    the front's newest batch was still on the card), the open split's
-    groups (n_tail_groups) and submit_tail_overlap_ms (the ms of the
-    front's submits during which the tail worker ran a native call,
-    counted once each arena batch has ended), and the hash
-    join's collect counts (collect_probed, collect_anchor_slots:
-    DeviceFront's) with its table's words a slot
-    (table_slot_words).  gwfa_pool: a DeviceGwfaPool on `gi` for the bridges of
-    the graph-chain stage (every read then maps on the per-read path);
-    cov: (c_seg, c_link) float64 arrays the reads' coverage adds to
-    (--cov), instead of GAF."""
+    spans (utils/trace.py; span_ms, span_n: ms and calls by name), the
+    open split's groups (n_tail_groups) and submit_tail_overlap_ms (the
+    ms of the front's submits during which the tail worker ran a native
+    call, counted once each arena batch has ended), and the hash join's
+    collect counts (collect_probed, collect_anchor_slots: DeviceFront's)
+    with its table's words a slot (table_slot_words).  gwfa_pool: a
+    DeviceGwfaPool on `gi` for the bridges of the graph-chain stage
+    (every read then maps on the per-read path); cov: (c_seg, c_link)
+    float64 arrays the reads' coverage adds to (--cov), instead of
+    GAF."""
     _check_options(opt)
     if front is not None and stats is not None:
         for key in ("n_share_dev", "n_share_host"):
@@ -1573,7 +1416,7 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     if front is not None:
         front.log_stats()
         if stats is not None:
-            split = getattr(front, "_split_state", None) or {}
+            split = getattr(front, "_split_state", None)
             stats.update(n_device=front.n_device,
                          n_fallback=front.n_fallback,
                          n_chain_unsure=front.n_chain_unsure,
@@ -1583,8 +1426,8 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
                          collect_probed=front.collect_probed,
                          collect_anchor_slots=front.collect_anchor_slots,
                          table_slot_words=front.table_slot_words,
-                         share=split.get("share"),
-                         collapsed=bool(split.get("collapsed")),
+                         share=split.share if split else None,
+                         collapsed=bool(split and split.collapsed),
                          stage_ms=dict(front.timer.ms))
 
 

@@ -1,8 +1,8 @@
 """The native batch tail: anchors or compacted chains -> GAF text.
 
 Port of the JAX package's mapping/mapper.py `_map_batch_native` (items
-mode, and blob mode over the native reader's arenas with the fr_map and
-fr_flat hand-offs) and the graph/index context helpers it calls.  One
+mode, and blob mode over the native reader's arenas with the fr_flat
+hand-off) and the graph/index context helpers it calls.  One
 call maps a batch of reads in native/mgt_batch.c: a work-stealing
 pthread loop over mgt_map_tail (linear and graph chaining),
 mgt_select_chains and mgt_format_gaf.  A read arrives with the device
@@ -222,8 +222,8 @@ def _fill_front(k, fr, keep, n_a, axp, ayp, mpp, n_mv, n_mini, rep_len,
 
 
 def map_batch_native(gi, opt, items, n_threads: int,
-                     host_collect: bool = False, blob=None, fr_map=None,
-                     fr_flat=None, frag_blob=None) -> dict:
+                     host_collect: bool = False, blob=None, fr_flat=None,
+                     frag_blob=None) -> dict:
     """Map a batch of reads to GAF text in one native call.
 
     items: list of (key, qname, seq, FrontResult-or-None); seq is a
@@ -246,8 +246,7 @@ def map_batch_native(gi, opt, items, n_threads: int,
     the whole host path in its worker (host collect), except the reads
     the device front mapped, whose compacted chains (or a seed-only
     front's anchors: a blob without U) come as batch arrays (`fr_flat`,
-    a list of (arena indices, DeviceFront.gather_flat blob)) or per read
-    (`fr_map`, {arena index: FrontResult}).  A skipped
+    a list of (arena indices, DeviceFront.gather_flat blob)).  A skipped
     read has no key.  frag_blob = (n_seg, seg_mid, qname_len)
     presents the blob as fragments: the offsets span whole fragments
     (mates adjacent in the arena), seg_mid is a pair's boundary and
@@ -356,8 +355,6 @@ def map_batch_native(gi, opt, items, n_threads: int,
                     + fb["uprefix"].astype(np.uint64) * 8
                 mdx[idxs] = fb["n_u"]
                 mdy[idxs] = 0
-        for k, fr in (fr_map or {}).items():
-            _fill_front(k, fr, *fill)
         qseq_blob = ct.cast(sq_addr, ct.c_char_p)
         qname_blob = ct.cast(nm_addr, ct.c_char_p)
         host_collect = True

@@ -22,8 +22,7 @@ trace, on the kernels' clock.  Prints one JSON object:
   host was in at each idle gap's middle (outer > inner), largest first;
   a gap shorter than a span can fall outside it, so a short span's
   share is a lower bound;
-- tail_dev_overlap_ms, submit_tail_overlap_ms, n_tail_groups and
-  n_arena from the stats.
+- submit_tail_overlap_ms, n_tail_groups and n_arena from the stats.
 
 --trace keeps the exported trace in FILE; it is deleted otherwise.
 `profile_spans` runs any call the same way.
@@ -147,8 +146,7 @@ def report(stats: dict, red: Optional[dict]) -> dict:
     if red is not None:
         out.update({k: red[k] for k in ("window_s", "busy_s", "idle_s",
                                         "idle_by_span")})
-    for k in ("tail_dev_overlap_ms", "submit_tail_overlap_ms",
-              "n_tail_groups", "n_arena"):
+    for k in ("submit_tail_overlap_ms", "n_tail_groups", "n_arena"):
         out[k] = stats.get(k)
     return out
 

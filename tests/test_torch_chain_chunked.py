@@ -22,6 +22,7 @@ from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
 from minigraph_tpu_torch.mapping import mapper
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.ops.chain_chunked import (lchain_dp_chunked,
                                                    lchain_dp_chunked_ref)
 from minigraph_tpu_torch.options import IndexOptions, MapOptions
@@ -182,7 +183,7 @@ def test_map_files_chunked_matches_host(graph, monkeypatch):
     gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
     front = DeviceFront(gi, mo, device="cpu")
     assert front.chain_chunked
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._split_state = ShareSplit(share=0.0)
     buf, st = io.StringIO(), {}
     mapper.map_reads(gi, mo, [fa], buf, 2, front, st)
     assert buf.getvalue() == host.getvalue()
@@ -204,7 +205,7 @@ def test_native_loop_chunked_matches_host(graph, monkeypatch):
     gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
     front = DeviceFront(gi, mo, device="cpu")
     assert front.chain_chunked
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._split_state = ShareSplit(share=0.0)
     buf, st = io.StringIO(), {}
     mapper.map_reads(gi, mo, [fa], buf, 2, front, st)
     assert buf.getvalue() == host.getvalue()

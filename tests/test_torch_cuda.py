@@ -765,64 +765,6 @@ def test_front_staging_on_card(card, tmp_path):
     assert front.stage_pinned_bytes == pinned
 
 
-def test_front_overlap_ms_on_card(card, tmp_path):
-    """DeviceFront.busy_mark and overlap_ms on the card's events: a host
-    call that ends while the batch still runs counts whole, one that
-    outlasts the batch counts its part up to the batch's end, one after
-    the batch counts 0."""
-    import time
-
-    from minigraph_tpu_torch.graph.gfa_io import read_gfa
-    from minigraph_tpu_torch.index.midx import build_index
-    from minigraph_tpu_torch.mapping.device_front import DeviceFront
-    from minigraph_tpu_torch.options import MapOptions
-    from minigraph_tpu_torch.tools.synth import (make_reference,
-                                                 write_bubble_rgfa)
-    ref = make_reference(60_000, seed=11)
-    write_bubble_rgfa(ref, 12, str(tmp_path / "g.gfa"), seg_len=20_000)
-    mo = MapOptions()
-    front = DeviceFront(build_index(read_gfa(str(tmp_path / "g.gfa")), 17,
-                                    11, mo), mo, device="cuda")
-
-    def batch(cycles):
-        """A stand-in batch of `cycles` on the stream; (start, end)."""
-        e0 = torch.cuda.Event(enable_timing=True)
-        e1 = torch.cuda.Event(enable_timing=True)
-        e0.record()
-        torch.cuda._sleep(cycles)
-        e1.record()
-        front.last_end = e1
-        return e0, e1
-
-    def call(s):
-        """A host call of `s` seconds from now; (mark, its ms)."""
-        mark = front.busy_mark()
-        t = time.perf_counter()
-        time.sleep(s)
-        return mark, (time.perf_counter() - t) * 1e3
-    torch.cuda.synchronize()
-    e0, e1 = batch(20_000_000)
-    e1.synchronize()
-    per_ms = 20_000_000 / e0.elapsed_time(e1)    # the card's clock
-
-    # the batch outlasts the call
-    b0, b1 = batch(int(400 * per_ms))
-    mark, ms = call(0.05)
-    got = front.overlap_ms(mark, ms)
-    b1.synchronize()
-    assert mark is b1 and b0.elapsed_time(b1) > 200, b0.elapsed_time(b1)
-    assert got == ms
-    # the call outlasts the batch: its part up to the batch's end
-    b0, b1 = batch(int(60 * per_ms))
-    mark, ms = call(0.25)
-    got = front.overlap_ms(mark, ms)
-    assert mark is b1 and 0 < got < ms, (got, ms)
-    assert got == pytest.approx(b0.elapsed_time(b1), abs=10.0)
-    # the batch has finished before the call
-    mark, ms = call(0.01)
-    assert mark is None and front.overlap_ms(mark, ms) == 0.0
-
-
 @pytest.mark.parametrize("preset", ["asm", "rmq"])
 def test_seed_only_front_on_card(card, tmp_path, preset):
     """asm (k = 19, the wide-key hash join) and --rmq: the seed-only

@@ -24,6 +24,7 @@ from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping import mapper
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
 from minigraph_tpu_torch.mapping.seeds import collect_native
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_RMQ, IndexOptions, MapOptions,
                                          opt_set)
 from minigraph_tpu_torch.tools.synth import (make_haplotype, make_reference,
@@ -146,7 +147,7 @@ def test_tail_modes_on_device_anchors(data, kind, loop):
     mo = MapOptions(**SEED_ONLY[kind])
     gi = build_index(read_gfa(gfa), 17, 11, mo)
     front = DeviceFront(gi, mo, device="cpu")
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._split_state = ShareSplit(share=0.0)
     out, st = io.StringIO(), {}
     with pytest.MonkeyPatch.context() as mp:
         if loop == "python":
@@ -165,7 +166,8 @@ def test_flat_blob_matches_per_read_handoff(data, kind):
     """map_batch_native on a blob of the reads: the seed-only front's
     chunks handed on as flat blobs (no U: the reads keep mode 2 for
     --rmq, mode 1 for -F) write the same GAF bytes as the same anchors
-    handed on per read (fr_map), and as the workers' own collect."""
+    handed on per read (items with a FrontResult), and as the workers'
+    own collect."""
     from minigraph_tpu_torch.mapping.native_tail import map_batch_native
     gfa, _, reads, _ = data
     mo = MapOptions(**SEED_ONLY[kind])
@@ -193,7 +195,8 @@ def test_flat_blob_matches_per_read_handoff(data, kind):
                                       names.ctypes.data, nm_off, skip),
                                 **kw)
     got = tail(fr_flat=flat)
-    want = tail(fr_map={i: per_read[i] for i in mapped})
+    want = map_batch_native(gi, mo, [(i, f"r{i}", reads[i], per_read[i])
+                                     for i in mapped], 2)
     host = tail()
     assert got == want == host
     assert sum(v is not None and v.count("\t") > 10

@@ -24,6 +24,7 @@ from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
 from minigraph_tpu_torch.mapping import mapper
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_SHOW_UNMAP, IndexOptions,
                                          MapOptions)
 from minigraph_tpu_torch.tools.synth import (make_reference, simulate_reads,
@@ -75,7 +76,7 @@ def port_gaf(files, device, flag=0, loop="batch"):
         ipt = IndexOptions()
         gi = build_index(read_gfa(gfa), ipt.k, ipt.w, mo)
         front = DeviceFront(gi, mo, device=device)
-        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        front._split_state = ShareSplit(share=0.0)
         mapper.map_reads(gi, mo, [fa], out, 2, front, st)
     return out.getvalue(), st
 

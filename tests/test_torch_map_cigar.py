@@ -29,6 +29,7 @@ from minigraph_tpu_torch.align.cigar_device import DeviceWfaPool
 from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_CIGAR, MG_M_VERTEX_COOR,
                                          MG_M_WRITE_LCHAIN, IndexOptions,
                                          MapOptions, opt_set)
@@ -95,7 +96,7 @@ def port_gaf(files, flag, preset=None, q="r", loop="native", pool=None):
     mo.flag |= flag
     gi = build_index(read_gfa(files["g"]), io_.k, io_.w, mo)
     front = DeviceFront(gi, mo, device="cpu")
-    front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+    front._split_state = ShareSplit(share=0.0)
     front._wfa_pool = pool
     out, st = io.StringIO(), {}
     with pytest.MonkeyPatch.context() as mp:

@@ -30,6 +30,7 @@ import minigraph_tpu_torch.mapping.mapper as port_mapper
 from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_PRINT_2ND, MG_M_SHOW_UNMAP,
                                          IndexOptions, MapOptions)
 from minigraph_tpu_torch.seqio.gaf import write_gaf
@@ -143,7 +144,7 @@ def _port_gaf(files, device, stats=None, loop="batch"):
         opt = MapOptions(flag=FLAG)
         gi = build_index(read_gfa(files[0]), 17, 11, opt)
         front = DeviceFront(gi, opt, device=device)
-        front._split_state = {"share": 0.0, "t_host": None, "t_dev": None}
+        front._split_state = ShareSplit(share=0.0)
         port_mapper.map_reads(gi, opt, [files[1]], out, 2, front, stats)
     return out.getvalue()
 

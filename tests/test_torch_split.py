@@ -5,11 +5,15 @@ collapsed with device probes equal the JAX package's host-only
 map_files and the port's device=None run, over >= 8 arena batches,
 with the device share cut into one, two or more groups a batch (the
 front running the same bucket batches); the port's NativeSeqReader cuts
-the batches where BSeqFile.read_batch does; the ported _probe_interval
-gives the JAX package's values; a collapsed split's probe refreshes the
-device cost estimate t_dev; an exception in a queued native tail
-reaches the caller; and no tail of batch k is in flight when the reader
-hands out batch k + 2.  Inputs from tools/synth.py.  Tolerance 0."""
+the batches where BSeqFile.read_batch does; a collapsed split's probe
+refreshes the device cost estimate t_dev; an exception in a queued
+native tail reaches the caller; no tail of batch k is in flight when
+the reader hands out batch k + 2; the split's learned state carries
+from one map_reads call to the next on one front.  The share controller
+(mapping/split.py ShareSplit) on made-up costs, with no front: the
+finish-together target and its clamps, the two collapses, the reopen,
+cold costs, the probe cadence, whose interval equals the JAX package's
+_probe_interval.  Inputs from tools/synth.py.  Tolerance 0."""
 import io
 import math
 import sys
@@ -27,7 +31,9 @@ from minigraph_tpu.options import MapOptions as JaxMapOptions
 from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping import mapper
+from minigraph_tpu_torch.mapping import split as split_mod
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_SHOW_UNMAP, IndexOptions,
                                          MapOptions)
 from minigraph_tpu_torch.seqio.bseq import BSeqFile, NativeSeqReader
@@ -117,10 +123,8 @@ def record_groups(monkeypatch):
 @pytest.mark.parametrize("groups", ["one", "two", "many"])
 @pytest.mark.parametrize("state", ["pinned", "start", "collapsed"])
 def test_split_gaf_matches_host(files, state, groups, monkeypatch):
-    init = {"pinned": {"share": 0.0, "t_host": None, "t_dev": None},
-            "start": None,
-            "collapsed": {"share": 1.0, "collapsed": True, "t_host": None,
-                          "t_dev": None}}[state]
+    init = {"pinned": ShareSplit(share=0.0), "start": None,
+            "collapsed": ShareSplit(collapsed=True)}[state]
     bsz, per_thread = GROUPS[groups]
     monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", per_thread)
     batches = record_groups(monkeypatch)
@@ -150,7 +154,7 @@ def test_split_gaf_matches_host(files, state, groups, monkeypatch):
         assert most == {"one": 1, "two": 2}.get(groups, most) \
             and (groups != "many" or most >= 3), batches
     if state == "pinned":
-        assert st["n_share_host"] == 0 and split["share"] == 0.0, st
+        assert st["n_share_host"] == 0 and split.share == 0.0, st
         assert st["n_device"] + st["n_fallback"] + st["n_chain_unsure"] \
             == 48, st
         assert st["n_device"] >= 16, st
@@ -163,7 +167,7 @@ def test_split_gaf_matches_host(files, state, groups, monkeypatch):
         assert st["n_fallback"] + st["n_chain_unsure"] > 0, st
         assert st["n_perread"] == 0, st
     elif state == "start":
-        assert split["t_dev"] is not None and split["t_host"] is not None
+        assert split.t_dev is not None and split.t_host is not None
         assert st["n_share_dev"] > 0 and st["n_share_host"] > 1, st
     else:
         assert st["n_probes"] >= 1 and st["collapsed"], st
@@ -174,12 +178,11 @@ def test_collapsed_probe_refreshes_t_dev(files):
     """A collapsed split probes every 8th arena batch while it has no
     cost estimates; the first probe runs the bucket cold, so the second
     sets t_dev."""
-    got, st, split = front_run(
-        files, {"share": 1.0, "collapsed": True, "t_host": None,
-                "t_dev": None}, batch_bp=1500)
+    got, st, split = front_run(files, ShareSplit(collapsed=True),
+                               batch_bp=1500)
     assert got == files[3]
     assert st["n_arena"] >= 16 and st["n_probes"] >= 2, st
-    assert split["t_dev"] is not None and split["t_host"] is not None
+    assert split.t_dev is not None and split.t_host is not None
 
 
 def _front_batches(buckets, qlen, reads):
@@ -238,8 +241,7 @@ def test_tail_exception_reaches_the_caller(files, monkeypatch):
 
     def run():
         try:
-            front_run(files, {"share": 0.0, "t_host": None, "t_dev": None},
-                      pad_len=2048, bsz=2)
+            front_run(files, ShareSplit(share=0.0), pad_len=2048, bsz=2)
         except BaseException as e:
             got.append(e)
     th = threading.Thread(target=run, daemon=True)
@@ -314,8 +316,8 @@ def test_no_tail_in_flight_two_batches_on(files, monkeypatch):
                         read_batch_arena)
     monkeypatch.setattr(mapper, "map_batch_native", tail)
     monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
-    got, st, _ = front_run(files, {"share": 0.0, "t_host": None,
-                                   "t_dev": None}, pad_len=2048, bsz=2)
+    got, st, _ = front_run(files, ShareSplit(share=0.0), pad_len=2048,
+                           bsz=2)
     assert got == files[3] and st["n_arena"] >= 8
     assert st["n_tail_groups"] > st["n_arena"], st
     assert not bad, bad
@@ -356,4 +358,140 @@ def test_native_reader_refuses_missing_file(tmp_path):
     {"t_dev": 1.02e-3, "t_host": 0.18e-3}, {"t_dev": 70e-3, "t_host": 2.7e-3},
     {"t_dev": 1e-6, "t_host": 1.0}, {"t_dev": 10.0, "t_host": 1e-4}])
 def test_probe_interval_matches_jax(split):
-    assert mapper._probe_interval(split) == jax_probe_interval(split)
+    ctl = ShareSplit()
+    ctl.t_dev, ctl.t_host = split.get("t_dev"), split.get("t_host")
+    assert ctl.probe_interval() == jax_probe_interval(split)
+
+
+def test_split_state_carries_across_files(files, monkeypatch):
+    """Two map_reads calls on one front (as the benchmark maps its files):
+    the second starts from the first's learned share and costs, on the
+    same ShareSplit, and both write the host run's bytes."""
+    _, fa, gi, want = files
+    mo = opts()
+    front = DeviceFront(gi, mo, device="cpu", buckets=((1024, 8),),
+                        chain_window=64)
+    shares = []
+    real_plan = ShareSplit.plan
+
+    def plan(self, n, n_elig):
+        shares.append((self.share, self.t_dev, self.t_host))
+        return real_plan(self, n, n_elig)
+    monkeypatch.setattr(ShareSplit, "plan", plan)
+    out = io.StringIO()
+    mapper.map_reads(gi, mo, [fa], out, 2, front, {})
+    split = front._split_state
+    assert isinstance(split, ShareSplit) and shares[0] == (0.35, None, None)
+    assert split.t_dev is not None and split.t_host is not None
+    learned = (split.share, split.t_dev, split.t_host)
+    n_first = len(shares)
+    out2 = io.StringIO()
+    mapper.map_reads(gi, mo, [fa], out2, 2, front, {})
+    assert front._split_state is split
+    assert shares[n_first] == learned
+    assert out.getvalue() == out2.getvalue() == want
+
+
+@pytest.mark.parametrize("t_dev,t_host,share", [
+    (1.0, 3.0, 0.25),                # the host takes t_dev / (sum)
+    (3.0, 1.0, 0.75),
+    (0.95, 0.05, 0.9),               # 0.95: clamped at 0.9
+    (0.96, 0.04, 1.0)])              # over 0.95: the device does not pay
+def test_share_is_the_finish_together_target(t_dev, t_host, share):
+    ctl = ShareSplit()
+    ctl.device_cost(t_dev, 1, False)
+    ctl.host_cost(t_host, t_host, 1)
+    ctl.end_batch(10)
+    assert ctl.share == pytest.approx(share) and not ctl.collapsed
+    assert ctl.plan(10, 8) == 8 - int(8 * ctl.share)
+
+
+@pytest.mark.parametrize("targets,collapsed", [
+    ([0.96], False), ([0.96, 0.96], True), ([0.96, 0.5, 0.96], False)])
+def test_collapse_on_two_high_targets_in_a_row(targets, collapsed):
+    """A target over 0.95 twice in a row collapses the split; once, or
+    twice with a lower one between, does not."""
+    ctl = ShareSplit()
+    for tgt in targets:
+        ctl.t_dev, ctl.t_host = tgt, 1.0 - tgt
+        ctl.end_batch(10)
+    assert ctl.collapsed == collapsed
+    assert ctl.share == (1.0 if targets[-1] > 0.95 else 0.5)
+
+
+@pytest.mark.parametrize("case,cycles,cyc_s,t_cpu,collapsed", [
+    ("three cycles, one thread 2x faster", 3, 0.1, 5e-4, True),
+    ("two cycles only", 2, 0.1, 5e-4, False),
+    ("one thread as fast, under 8% ahead", 3, 0.1, 1e-3, False),
+    ("build-length cycles", 3, 10.0, 5e-4, False)])
+def test_collapse_when_one_host_thread_beats_the_blend(
+        monkeypatch, case, cycles, cyc_s, t_cpu, collapsed):
+    """Batches of 100 reads cycling every cyc_s s: the blend maps
+    100 / cyc_s reads a second; one host thread at t_cpu s a read beats
+    it by more than 8% once three cycles are in the average.  A cycle of
+    over 0.05 s a read is a build's and not counted."""
+    now = [0.0]
+    monkeypatch.setattr(split_mod, "_clock", lambda: now[0])
+    ctl = ShareSplit()
+    ctl.t_dev = ctl.t_host = 1e-3           # target 0.5
+    ctl.t_host_cpu = t_cpu
+    ctl.end_batch(100)                      # the first end: no cycle yet
+    for _ in range(cycles):
+        now[0] += cyc_s
+        ctl.end_batch(100)
+    assert ctl.collapsed == collapsed, case
+    assert ctl.nb_mix == (0 if cyc_s > 5 else cycles)
+    assert ctl.share == (1.0 if collapsed else 0.5)
+
+
+@pytest.mark.parametrize("probes,reopened", [
+    (["low"], False), (["low", "low"], True), (["low", "high", "low"], False),
+    (["low", "cold", "none", "low"], True)])
+def test_reopen_after_two_low_probes_in_a_row(probes, reopened):
+    """Collapsed, a warm probe at a target <= 0.45 counts toward the
+    reopen, one above it resets the count; a cold probe and a batch with
+    no probe leave it.  On reopen the share stays 1.0 for the next batch
+    and the blended rate starts afresh."""
+    ctl = ShareSplit(collapsed=True)
+    ctl.host_cost(1e-2, 1e-2, 10)          # 1 ms a read
+    ctl.rate_mix, ctl.nb_mix = 5000.0, 4
+    for p in probes:
+        if p != "none":
+            # the average restarted: each probe's target is its own
+            # (0.33 low, 0.83 high)
+            ctl.t_dev = None
+            ctl.device_cost({"high": 5e-2}.get(p, 5e-3), 10, p == "cold")
+        ctl.end_batch(40)
+    assert ctl.collapsed != reopened and ctl.share == 1.0
+    assert (ctl.rate_mix, ctl.nb_mix, ctl.reopen) == (
+        (None, 0, 0) if reopened else (5000.0, 4, 1))
+
+
+@pytest.mark.parametrize("collapsed", [False, True])
+def test_cold_device_cost_is_not_a_cost(collapsed):
+    """A device cost from a submit that built the kernels or ran a bucket
+    cold leaves t_dev; the next warm one sets it."""
+    ctl = ShareSplit(collapsed=collapsed)
+    ctl.device_cost(5.0, 10, True)
+    assert ctl.t_dev is None
+    ctl.device_cost(0.02, 10, False)
+    assert ctl.t_dev == pytest.approx(0.002)
+
+
+@pytest.mark.parametrize("t_dev,t_host,interval", [
+    (None, None, 8), (2e-3, 1e-4, 100), (1.0, 1e-4, 256)])
+def test_probe_cadence(t_dev, t_host, interval):
+    """Collapsed, every interval-th batch probes max(8, n // 4) of the
+    batch's n reads (at most its eligible ones); the others send none.
+    Open, the device takes what the share leaves."""
+    ctl = ShareSplit(collapsed=True)
+    ctl.t_dev, ctl.t_host = t_dev, t_host
+    got = [ctl.plan(100, 60) for _ in range(2 * interval)]
+    assert [k + 1 for k, g in enumerate(got) if g] == [interval,
+                                                       2 * interval]
+    assert max(got) == 25
+    ctl.nb = interval - 1
+    assert ctl.plan(20, 60) == 8 and ctl.nb == interval
+    ctl.nb = interval - 1
+    assert ctl.plan(100, 3) == 3
+    assert ShareSplit().plan(100, 60) == 60 - 21

@@ -5,19 +5,17 @@ front's inner spans fit inside their parents; under a CPU torch.profiler
 the spans are "mg:" ranges of the exported trace, nested as named, and
 with no profiler record_function is never entered; the GAF bytes do
 not change with a profiler; the five attributes that portbench's traced
-run wraps still see every call; stats["tail_dev_overlap_ms"] counts
-the part of each device-share tail that ran while the front's newest
-batch was still on the card; in the open split the tail.* spans are
+run wraps still see every call; in the open split the tail.* spans are
 the tail worker's and the front.* spans the loop thread's; and
 stats["submit_tail_overlap_ms"] counts the part of the front's submits
 during which the worker ran a tail call.  A tiny synthetic graph, a CPU
 front on one small bucket, several arena batches a file."""
+import functools
 import io
 import json
 import math
 import sys
 import threading
-import time
 from pathlib import Path
 
 import pytest
@@ -27,6 +25,7 @@ from minigraph_tpu_torch.graph.gfa_io import read_gfa
 from minigraph_tpu_torch.index.midx import build_index
 from minigraph_tpu_torch.mapping import mapper
 from minigraph_tpu_torch.mapping.device_front import DeviceFront
+from minigraph_tpu_torch.mapping.split import ShareSplit
 from minigraph_tpu_torch.options import (MG_M_SHOW_UNMAP, IndexOptions,
                                          MapOptions)
 from minigraph_tpu_torch.tools.synth import (make_reference, simulate_reads,
@@ -43,10 +42,11 @@ STAGES = ("front.sketch", "front.collect", "front.chain", "front.backtrack",
 GATHER = ("front.wait", "front.unpack")
 SETUP = ("setup.index", "setup.front.tables", "setup.front.upload")
 TAILS = ("tail.host_share", "tail.device_share", "tail.probe")
-OPEN = {"share": 0.35, "t_host": None, "t_dev": None}
+# the split's start, as a new front's first file finds it
+OPEN = ShareSplit
 # every read to the device: each arena batch submits and finishes once
-PINNED = {"share": 0.0, "t_host": None, "t_dev": None}
-COLLAPSED = {"share": 1.0, "collapsed": True, "t_host": None, "t_dev": None}
+PINNED = functools.partial(ShareSplit, share=0.0)
+COLLAPSED = functools.partial(ShareSplit, collapsed=True)
 
 
 def opts(batch_bp=BATCH_BP):
@@ -74,7 +74,7 @@ def files(tmp_path_factory):
 def new_front(gi, state=None):
     front = DeviceFront(gi, opts(), device="cpu", buckets=((1024, 8),),
                         chain_window=64)
-    front._split_state = dict(state or OPEN)
+    front._split_state = (state or OPEN)()
     return front
 
 
@@ -239,89 +239,6 @@ def test_wrapped_attributes_see_every_call(files, monkeypatch):
     assert calls["_open_split_finish"] == st["n_arena"]
 
 
-class _Event:
-    """A batch's end event on a host clock: done from `t_done` on (busy
-    until the batch's gather begins, or always with `always`)."""
-
-    def __init__(self, always):
-        self.t_done = math.inf
-        self.always = always
-
-    def query(self):
-        return time.perf_counter() >= self.t_done
-
-    def synchronize(self):
-        pass
-
-    def elapsed_time(self, now):
-        return (now.t - self.t_done) * 1e3
-
-
-class _Now:
-    """overlap_ms's event of the call's end, on the same host clock."""
-
-    def __init__(self, t=None):
-        self.t = time.perf_counter() if t is None else t
-
-    def synchronize(self):
-        pass
-
-
-def stub_front(gi, monkeypatch, always=False):
-    front = new_front(gi, PINNED)
-    real_submit, real_gather = front.submit, front.gather_flat
-    events = {}
-
-    def submit(seqs):
-        h = real_submit(seqs)
-        front.last_end = events[id(h)] = _Event(always)
-        return h
-
-    def gather_flat(h):
-        if not events[id(h)].always:
-            events[id(h)].t_done = time.perf_counter()
-        return real_gather(h)
-    monkeypatch.setattr(front, "submit", submit)
-    monkeypatch.setattr(front, "gather_flat", gather_flat)
-    monkeypatch.setattr(front, "_now_mark", _Now)
-    return front
-
-
-def test_tail_overlap_counter(files, monkeypatch):
-    fa, gi, want = files
-    # the card always busy: every device-share tail overlaps it
-    got, st, d = run(files, stub_front(gi, monkeypatch, always=True))
-    assert got == want and st["n_arena"] >= 5
-    dev = d["span_ms"]["tail.device_share"]
-    assert st["tail_dev_overlap_ms"] == pytest.approx(dev, rel=1e-9)
-    # one group an arena batch: its tail is queued after its own gather,
-    # with no batch on the card
-    got, st, d = run(files, stub_front(gi, monkeypatch))
-    assert got == want and st["n_tail_groups"] == st["n_arena"] >= 5
-    assert st["tail_dev_overlap_ms"] == 0
-    got, st, d = run(files, stub_front(gi, monkeypatch), batch_bp=1 << 30)
-    assert got == want and st["n_arena"] == 1
-    assert d["span_n"]["tail.device_share"] == 1
-    assert st["tail_dev_overlap_ms"] == 0
-    # a CPU front never reports a batch in flight
-    _, st, d = run(files, new_front(gi))
-    assert st["tail_dev_overlap_ms"] == 0
-    assert "tail_dev_overlap_ms" not in d       # stats only, no registry
-    # one bucket batch a group, busy until gathered: each group's tail
-    # is queued after its own gather, before the next group's submit,
-    # with no batch on the card; the card always busy: the whole tails
-    monkeypatch.setattr(mapper, "TAIL_READS_PER_THREAD", 1)
-    got, st, d = run(files, stub_front(gi, monkeypatch), batch_bp=1 << 30)
-    assert got == want and st["n_arena"] == 1 and st["n_tail_groups"] == 5
-    assert d["span_n"]["tail.device_share"] == 5
-    assert st["tail_dev_overlap_ms"] == 0
-    got, st, d = run(files, stub_front(gi, monkeypatch, always=True),
-                     batch_bp=1 << 30)
-    assert got == want and st["n_tail_groups"] == 5
-    dev = d["span_ms"]["tail.device_share"]
-    assert st["tail_dev_overlap_ms"] == pytest.approx(dev, rel=1e-9)
-
-
 def test_open_split_threads_and_submit_overlap(files, monkeypatch):
     """In the open split the tail.* spans are entered on the tail worker
     only and the front.* spans on the loop's thread only; the submits'
@@ -357,54 +274,6 @@ def test_open_split_threads_and_submit_overlap(files, monkeypatch):
     assert got == want and st["n_tail_groups"] == 1
     assert st["n_share_host"] == 0 and d["span_n"]["front.submit"] == 1
     assert st["submit_tail_overlap_ms"] == 0
-
-
-@pytest.mark.parametrize("case,t_done,want", [
-    ("finished before the call", None, 0.0),
-    ("still running at its end", math.inf, 10.0),
-    ("finished 4 ms into it", 0.004, 4.0),
-    ("finished at its end", 0.010, 10.0),
-    ("finished as it began", 0.0, 0.0),
-    ("read busy, finished just before", -0.002, 0.0)])
-def test_overlap_ms_cases(files, monkeypatch, case, t_done, want):
-    """A 10 ms host call from 0 to 10 ms against the batch's end: the
-    overlap is the call less the card's time from the batch's end to
-    the call's end, within the call."""
-    fa, gi, _ = files
-    front = new_front(gi)
-    monkeypatch.setattr(front, "_now_mark", lambda: _Now(0.010))
-    mark = None
-    if t_done is not None:
-        mark = _Event(False)
-        mark.t_done = t_done
-    assert front.overlap_ms(mark, 10.0) == pytest.approx(want), case
-
-
-@pytest.mark.parametrize("case,t_done,want", [
-    ("finished before the call", -0.002, 0.0),
-    ("finished 4 ms into it", 0.004, 4.0),
-    ("finished after it ended", 0.012, 10.0),
-    ("still running now", math.inf, 10.0)])
-def test_overlap_ms_of_an_earlier_call(files, monkeypatch, case, t_done,
-                                       want):
-    """A 10 ms host call from 0 to 10 ms, its overlap read at 15 ms
-    (since_ms 15): the card's time from the batch's end to now puts the
-    end on the call's clock."""
-    fa, gi, _ = files
-    front = new_front(gi)
-    monkeypatch.setattr(front, "_now_mark", lambda: _Now(0.015))
-    mark = _Event(False)
-    mark.t_done = t_done
-    assert front.overlap_ms(mark, 10.0, 15.0) == pytest.approx(want), case
-
-
-def test_busy_mark_on_a_finished_batch(files):
-    fa, gi, _ = files
-    front = new_front(gi)
-    assert front.busy_mark() is None            # nothing submitted
-    front.last_end = _Event(False)
-    front.last_end.t_done = -math.inf
-    assert front.busy_mark() is None            # done: no start mark
 
 
 def test_python_loop_device_path_spans(files, monkeypatch):
@@ -507,7 +376,7 @@ def test_spanprof_profiles_the_cpu_front(files):
     rep = spanprof.report(st, red)
     assert rep["spans"]["front.gather"]["range_n"] \
         == d["span_n"]["front.gather"]
-    assert rep["n_arena"] == st["n_arena"] and rep["tail_dev_overlap_ms"] == 0
+    assert rep["n_arena"] == st["n_arena"] and "tail_dev_overlap_ms" not in rep
 
 
 def test_spanprof_command_line_host_only(files, tmp_path, capsys):
