@@ -17,8 +17,10 @@ A kernel that fuses where fusing is exact spells it out (__fmaf_rn in
 probe.cu, whose products and partial sums are integers below 2^24).
 
 `launches` counts kernel launches per kernel; `launch` adds one each
-time it starts a kernel and nowhere else, so a run can show that its
-main path went through the kernels.
+time it starts a kernel, and the device front adds, each time it
+replays a captured step (mapping/device_front.py), the launches that
+step's capture made, so a run can show that its main path went through
+the kernels.
 """
 from __future__ import annotations
 

@@ -32,12 +32,23 @@ itself (mode 1 or 2) and skips its own collect.
 The kernel path is chosen by the device of the tensors: the front runs
 on the device it is given, and the ops wrappers launch the CUDA kernels
 for tensors on the card and their plain versions for tensors on the CPU.
+
+On the card the step of a bucket shape runs eagerly once, the first
+time the front sees that shape; then each of its stages is captured
+into a CUDA graph of its own (`capture_stages`: one memory pool for the
+shape, replayed in the order of capture), and every later batch of the
+shape copies its codes and lengths into the captured inputs and
+replays the stages: a few graph launches a batch instead of the
+hundreds of PyTorch launches of the eager step, with the same kernels
+and the same words.  A shape whose capture fails stays eager.  On the
+CPU the step is always eager.
 """
 from __future__ import annotations
 
 import os
 import weakref
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
@@ -155,6 +166,37 @@ class _StagePool:
         self.free.setdefault(t.numel(), []).append(t)
 
 
+def capture_stages(fns, st: dict) -> list:
+    """Each stage fn(st) captured into a CUDA graph of its own, in order,
+    all in one memory pool: the graphs must be replayed in that order.
+    A stage reads its inputs from `st` and puts its outputs there, so
+    the tensors in `st` after the capture are the graphs' static inputs
+    and outputs.  Captures on a side stream (torch.cuda.graph's);
+    relaxed, because the chain and backtrack wrappers set their
+    kernel's shared-memory limit (cudaFuncSetAttribute) on every call.
+    Returns the graphs."""
+    pool = torch.cuda.graph_pool_handle()
+    graphs = []
+    for fn in fns:
+        g = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(g, pool=pool, capture_error_mode="relaxed"):
+            fn(st)
+        graphs.append(g)
+    return graphs
+
+
+@dataclass
+class _StepGraphs:
+    """A bucket shape's captured step: its tensors (`st`: the inputs
+    codes and lens, each stage's outputs, the packed buffer `buf` and
+    its `layout`), one graph a stage in the front's `stage_names` order,
+    and the kernel launches the capture made, which each replay adds to
+    `kernels.launches`."""
+    st: dict
+    graphs: list
+    launched: Dict[str, int]
+
+
 class DeviceFront:
     """Batched on-device seed and chain stage with host fallback flags.
 
@@ -215,15 +257,24 @@ class DeviceFront:
         # anchor planes)
         self.collect_probed = 0
         self.collect_anchor_slots = 0
-        # True after a submit that built the kernel library or ran a
-        # bucket for the first time: the split controller of the file
-        # loop (mapping/mapper.py) does not take that cost as the
-        # device's steady cost
+        # True after a submit that built the kernel library or ran (and
+        # on the card captured) a bucket shape for the first time: the
+        # split controller of the file loop (mapping/mapper.py) does not
+        # take that cost as the device's steady cost
         self.last_submit_cold = False
         # the span of the newest submit (utils/trace.py span: its t0 and
         # ns): the file loop's overlap of submits with native tails
         self.last_submit_span = None
-        self._warm = set()
+        # the bucket shapes seen, (pad_len, bsz, chain_enabled), each
+        # with its captured step (_StepGraphs), or None where it runs
+        # eagerly: always on the CPU, on the card where the capture
+        # failed
+        self._shapes: Dict[tuple, Optional[_StepGraphs]] = {}
+        self._capture = self.device.type == "cuda"
+        # bucket batches run from a shape's graphs, and eagerly by a
+        # front that captures (on the card)
+        self.n_step_replays = 0
+        self.n_step_eager = 0
         # the -c gap pool of the Python reader loop (align/cigar_device.py
         # DeviceWfaPool), made by the loop at its first use
         self._wfa_pool = None
@@ -243,8 +294,8 @@ class DeviceFront:
         mdy = opt.max_gap
         self.mdx_adj = max(mdx, opt.bw)
         self.mdy_adj = max(mdy, opt.bw)
-        self.timer = trace.StageTimer(
-            self.device, STAGES if self.chain_enabled else SEED_STAGES)
+        self.stage_names = STAGES if self.chain_enabled else SEED_STAGES
+        self.timer = trace.StageTimer(self.device, self.stage_names)
 
     # ------------------------------------------------------------------
     def caps(self, pad_len: int):
@@ -273,80 +324,147 @@ class DeviceFront:
         tile = min(128, acap) if self.device.type == "cuda" else 8
         return qcap, acap, win, tile
 
-    def _step(self, codes: torch.Tensor, lens: torch.Tensor, pad_len: int,
-              bsz: int):
-        """Run the device stages on one padded batch; returns the packed
-        device buffer and its layout."""
+    def _stages(self, pad_len: int, bsz: int):
+        """The step of a (pad_len, bsz) batch as its stages, one function
+        a name of `stage_names` (STAGES, or SEED_STAGES where the front
+        is seed-only), in order: each fn(st) reads its inputs from the
+        dict `st` (codes and lens to begin with) and puts its outputs
+        there; the last leaves the packed device buffer and its layout
+        in st["buf"] and st["layout"].  No stage synchronises with the
+        host or changes the front, so each can be captured in a CUDA
+        graph."""
         qcap, acap, win, tile = self.caps(pad_len)
         opt = self.opt
         gi = self.gi
         max_occ = int(opt.occ_max1)
-        tm = self.timer
-        t0 = tm.mark()
-        with trace.span("front.sketch"):
-            sp = sketch_planes(codes, lens, gi.w, gi.k)
-            t1 = tm.mark()
-        tm.add("sketch", t0, t1)
-        collect = collect_anchors_exact_hash if self.hashed \
+        collect_fn = collect_anchors_exact_hash if self.hashed \
             else collect_anchors_exact
-        with trace.span("front.collect"):
-            res = collect(self.ji, sp.hh, sp.hl, sp.meta, sp.t_hh, sp.t_hl,
-                          sp.t_meta, max_occ, self.occ_cap, qcap=qcap,
-                          acap=acap)
-            if self.hashed:
-                self.collect_probed += bsz * qcap
-                self.collect_anchor_slots += bsz * acap
-            overflow = res["overflow"] | sp.overflow
-            # cnt <= 255 decides every occurrence test (max_occ caps at
-            # 250)
-            q_cnt = torch.clamp(res["q_cnt"], 0, 255)
-            t2 = tm.mark()
-        tm.add("collect", t1, t2)
-        if not self.chain_enabled:
-            # seed-only: the raw anchor planes go to the host
-            full = {k: res[k] for k in ("axh", "axl", "ayh", "ayl")}
-            full.update(q_cnt=q_cnt, q_meta=res["q_meta"])
-            return self._pack(full, res["n_a"], res["n_q"], overflow, None,
-                              max_occ, bsz, acap, qcap, t2)
         # the chunked chain drops the max_ii candidate, exact only while
         # the iteration clamp clears the buffer (the JAX front's guards)
-        chain = lchain_dp_chunked if (
+        chain_fn = lchain_dp_chunked if (
             self.chain_chunked and opt.max_lc_iter >= win + min(128, acap)
             and win >= 128) else lchain_dp_exact_win
-        with trace.span("front.chain"):
-            f, p, sure = chain(
+
+        def sketch(st):
+            st["sp"] = sketch_planes(st["codes"], st["lens"], gi.w, gi.k)
+
+        def collect(st):
+            sp = st["sp"]
+            res = collect_fn(self.ji, sp.hh, sp.hl, sp.meta, sp.t_hh,
+                             sp.t_hl, sp.t_meta, max_occ, self.occ_cap,
+                             qcap=qcap, acap=acap)
+            st["res"] = res
+            st["overflow"] = res["overflow"] | sp.overflow
+            # cnt <= 255 decides every occurrence test (max_occ caps at
+            # 250)
+            st["q_cnt"] = torch.clamp(res["q_cnt"], 0, 255)
+
+        def chain(st):
+            res = st["res"]
+            st["f"], st["p"], st["sure"] = chain_fn(
                 res["axh"], res["axl"], res["ayh"], res["ayl"], res["n_a"],
                 int(self.mdx_adj), int(self.mdy_adj), int(opt.bw),
                 int(opt.max_lc_skip), int(opt.max_lc_iter),
                 self.chn_pen_gap, self.chn_pen_skip, window=win, tile=tile)
-            t3 = tm.mark()
-        tm.add("chain", t2, t3)
-        with trace.span("front.backtrack"):
-            bt = backtrack_compact(f, p, res["n_a"], res["axh"], res["axl"],
-                                   res["ayh"], res["ayl"],
+
+        def backtrack(st):
+            res = st["res"]
+            bt = backtrack_compact(st["f"], st["p"], res["n_a"], res["axh"],
+                                   res["axl"], res["ayh"], res["ayl"],
                                    min_cnt=int(opt.min_lc_cnt),
                                    min_sc=int(opt.min_lc_score),
                                    max_drop=int(opt.bw), ucap=UCAP)
-            sure = sure & ~bt["bt_unsure"]
-            t4 = tm.mark()
-        tm.add("backtrack", t3, t4)
-        full = {"axh": bt["c_axh"], "axl": bt["c_axl"],
-                "ayh": bt["c_ayh"], "ayl": bt["c_ayl"],
-                "u_pad_sc": bt["u_sc"], "u_pad_cnt": bt["u_cnt"],
-                "n_u": bt["n_u"], "q_cnt": q_cnt, "q_meta": res["q_meta"]}
-        return self._pack(full, bt["n_v"], res["n_q"], overflow, sure,
-                          max_occ, bsz, acap, qcap, t4)
+            st["bt"] = bt
+            st["sure"] = st["sure"] & ~bt["bt_unsure"]
 
-    def _pack(self, full, n_a, n_q, overflow, sure, max_occ, bsz, acap,
-              qcap, t0):
-        """Stage 5 (_pack_body) in its span and stage mark.  Returns
-        (buffer, layout)."""
-        with trace.span("front.pack"):
-            buf, layout = self._pack_body(full, n_a, n_q, overflow, sure,
-                                          max_occ, bsz, acap, qcap)
-            end = self.timer.mark()
-        self.timer.add("pack", t0, end)
-        return buf, layout
+        def pack(st):
+            res = st["res"]
+            if self.chain_enabled:
+                bt = st["bt"]
+                full = {"axh": bt["c_axh"], "axl": bt["c_axl"],
+                        "ayh": bt["c_ayh"], "ayl": bt["c_ayl"],
+                        "u_pad_sc": bt["u_sc"], "u_pad_cnt": bt["u_cnt"],
+                        "n_u": bt["n_u"]}
+                n_a, sure = bt["n_v"], st["sure"]
+            else:
+                # seed-only: the raw anchor planes go to the host
+                full = {k: res[k] for k in ("axh", "axl", "ayh", "ayl")}
+                n_a, sure = res["n_a"], None
+            full.update(q_cnt=st["q_cnt"], q_meta=res["q_meta"])
+            st["buf"], st["layout"] = self._pack_body(
+                full, n_a, res["n_q"], st["overflow"], sure, max_occ, bsz,
+                acap, qcap)
+
+        fns = {"sketch": sketch, "collect": collect, "chain": chain,
+               "backtrack": backtrack, "pack": pack}
+        return [fns[name] for name in self.stage_names]
+
+    def _run(self, calls, st: dict, pad_len: int, bsz: int):
+        """One batch through its stages: calls[i]() runs stage i (eagerly
+        or as a graph's replay), each in its span `front.<stage>` and
+        between two marks of the stage timer.  Returns (st["buf"],
+        st["layout"])."""
+        if self.hashed:
+            qcap, acap = self.caps(pad_len)[:2]
+            self.collect_probed += bsz * qcap
+            self.collect_anchor_slots += bsz * acap
+        tm = self.timer
+        t0 = tm.mark()
+        for name, call in zip(self.stage_names, calls):
+            with trace.span("front." + name):
+                call()
+                t1 = tm.mark()
+            tm.add(name, t0, t1)
+            t0 = t1
+        return st["buf"], st["layout"]
+
+    def _step(self, codes: torch.Tensor, lens: torch.Tensor, pad_len: int,
+              bsz: int):
+        """Run the device stages eagerly on one padded batch; returns the
+        packed device buffer and its layout."""
+        st = {"codes": codes, "lens": lens}
+        return self._run([partial(fn, st) for fn in self._stages(pad_len,
+                                                                  bsz)],
+                         st, pad_len, bsz)
+
+    def _replay(self, sg: _StepGraphs, codes: np.ndarray, lens: np.ndarray,
+                pad_len: int, bsz: int):
+        """One batch from its shape's graphs: its codes and lengths
+        copied into the captured inputs (stream-ordered: behind the
+        previous replay, whose staging copy of the packed buffer was
+        queued before this), then one replay a stage.  Returns the
+        captured buffer and its layout."""
+        st = sg.st
+        with trace.span("front.upload"):
+            st["codes"].copy_(torch.from_numpy(codes))
+            st["lens"].copy_(torch.from_numpy(lens))
+        with trace.span("front.dispatch"):
+            out = self._run([g.replay for g in sg.graphs], st, pad_len,
+                            bsz)
+        for name, n in sg.launched.items():
+            kernels.launches[name] += n
+        self.n_step_replays += 1
+        return out
+
+    def _capture_step(self, codes: torch.Tensor, lens: torch.Tensor,
+                      pad_len: int, bsz: int) -> Optional[_StepGraphs]:
+        """The shape's step captured (capture_stages) on copies of a
+        batch's inputs, after that batch has run eagerly (which loaded
+        the kernels and set their attributes); None where the capture
+        raised.  The capture runs nothing, so the launches it counted are
+        taken back."""
+        st = {"codes": codes.clone(), "lens": lens.clone()}
+        before = dict(kernels.launches)
+        try:
+            graphs = capture_stages(self._stages(pad_len, bsz), st)
+        except RuntimeError:
+            return None
+        finally:
+            launched = {k: v - before.get(k, 0)
+                        for k, v in kernels.launches.items()
+                        if v != before.get(k, 0)}
+            kernels.launches.update(before)
+        return _StepGraphs(st, graphs, launched)
 
     @staticmethod
     def _pack_body(full, n_a, n_q, overflow, sure, max_occ, B, acap, qcap):
@@ -458,26 +576,47 @@ class DeviceFront:
             pending = []
             for pad_len, idxs in by_bucket.items():
                 bsz = dict(self.buckets)[pad_len]
+                key = (pad_len, bsz, self.chain_enabled)
+                # a shape's first batch runs eagerly and, on the card,
+                # captures the shape's graphs
+                cold |= key not in self._shapes
                 for c0 in range(0, len(idxs), bsz):
                     chunk = idxs[c0: c0 + bsz]
                     reads = [seqs[i] for i in chunk]
                     reads += [""] * (bsz - len(reads))
                     with trace.span("front.encode"):
                         codes, lens = encode_batch(reads, pad_to=pad_len)
-                    with trace.span("front.upload"):
-                        codes = torch.from_numpy(codes).to(self.device)
-                        lens = torch.from_numpy(lens).to(self.device)
-                    with trace.span("front.dispatch"):
-                        buf, layout = self._step(codes, lens, pad_len, bsz)
+                    buf, layout = self._dispatch(key, codes, lens)
                     with trace.span("front.stage"):
                         host, done = self._stage(buf)
                     self.n_batches += 1
                     pending.append((chunk, host, layout, done))
-                if pad_len not in self._warm:
-                    self._warm.add(pad_len)
-                    cold = True
             self.last_submit_cold = cold
             return (len(seqs), pending)
+
+    def _dispatch(self, key, codes: np.ndarray, lens: np.ndarray):
+        """One encoded bucket batch through the step: replayed from its
+        shape's graphs where the shape has them, else uploaded and run
+        eagerly; a front on the card captures a shape's graphs after the
+        shape's first eager batch.  Returns the packed device buffer and
+        its layout."""
+        pad_len, bsz, _ = key
+        sg = self._shapes.get(key)
+        if sg is not None:
+            return self._replay(sg, codes, lens, pad_len, bsz)
+        with trace.span("front.upload"):
+            codes = torch.from_numpy(codes).to(self.device)
+            lens = torch.from_numpy(lens).to(self.device)
+        with trace.span("front.dispatch"):
+            out = self._step(codes, lens, pad_len, bsz)
+        if self._capture:
+            self.n_step_eager += 1
+            if key not in self._shapes:
+                with trace.span("front.capture"):
+                    self._shapes[key] = self._capture_step(codes, lens,
+                                                           pad_len, bsz)
+        self._shapes.setdefault(key, None)
+        return out
 
     def _stage(self, buf):
         """A packed batch's words on the host, and the event that marks
@@ -591,7 +730,9 @@ class DeviceFront:
                  f"device seed stage: {self.n_device}/{tot} reads on "
                  f"device, {self.n_fallback} host fallbacks, "
                  f"{self.n_chain_unsure} chain-DP host reruns, "
-                 f"{self.n_batches} batches, "
+                 f"{self.n_batches} batches "
+                 f"({self.n_step_replays} replayed from CUDA graphs, "
+                 f"{self.n_step_eager} eager on the card), "
                  f"{self.stage_bytes / 1e6:.1f} MB staged "
                  f"({self.stage_pinned_bytes / 1e6:.1f} MB pinned), "
                  f"join tables {self.table_bytes / 1e6:.1f} MB")

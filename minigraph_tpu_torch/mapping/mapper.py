@@ -1388,8 +1388,10 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
     native loop's arena batches (n_arena), the reads sent to the device
     and host shares (n_share_dev, n_share_host), the device probes
     (n_probes), and with a front the final share and collapsed (where
-    the loop ran a split), the front's counters and per-stage device
-    times (stage_ms).  It also receives the process's totals of the
+    the loop ran a split), the front's counters (of them its bucket
+    batches, n_batches: replayed from CUDA graphs, n_step_replays, and
+    run eagerly on the card, n_step_eager) and per-stage device times
+    (stage_ms).  It also receives the process's totals of the
     spans (utils/trace.py; span_ms, span_n: ms and calls by name), the
     open split's groups (n_tail_groups) and submit_tail_overlap_ms (the
     ms of the front's submits during which the tail worker ran a native
@@ -1423,6 +1425,8 @@ def map_reads(gi: MinimizerIndex, opt: MapOptions, fns: List[str],
                          stage_bytes=front.stage_bytes,
                          stage_pinned_bytes=front.stage_pinned_bytes,
                          n_batches=front.n_batches,
+                         n_step_replays=front.n_step_replays,
+                         n_step_eager=front.n_step_eager,
                          collect_probed=front.collect_probed,
                          collect_anchor_slots=front.collect_anchor_slots,
                          table_slot_words=front.table_slot_words,

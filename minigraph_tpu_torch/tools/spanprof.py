@@ -22,7 +22,9 @@ trace, on the kernels' clock.  Prints one JSON object:
   host was in at each idle gap's middle (outer > inner), largest first;
   a gap shorter than a span can fall outside it, so a short span's
   share is a lower bound;
-- submit_tail_overlap_ms, n_tail_groups and n_arena from the stats.
+- submit_tail_overlap_ms, n_tail_groups, n_arena, and the front's
+  bucket batches replayed from CUDA graphs and run eagerly on the card
+  (n_step_replays, n_step_eager) from the stats.
 
 --trace keeps the exported trace in FILE; it is deleted otherwise.
 `profile_spans` runs any call the same way.
@@ -146,7 +148,8 @@ def report(stats: dict, red: Optional[dict]) -> dict:
     if red is not None:
         out.update({k: red[k] for k in ("window_s", "busy_s", "idle_s",
                                         "idle_by_span")})
-    for k in ("submit_tail_overlap_ms", "n_tail_groups", "n_arena"):
+    for k in ("submit_tail_overlap_ms", "n_tail_groups", "n_arena",
+              "n_step_replays", "n_step_eager"):
         out[k] = stats.get(k)
     return out
 
