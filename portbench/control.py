@@ -28,6 +28,7 @@ if __name__ == "__main__":
 
 from portbench import check, indep  # noqa: E402
 from portbench.inputs import make_inputs  # noqa: E402
+from portbench.options import of_config  # noqa: E402
 from portbench.ref.mapper import Reference, read_fasta  # noqa: E402
 from portbench.spec import Spec  # noqa: E402
 
@@ -37,8 +38,9 @@ def control_reading(cell, seed: int) -> dict:
     work = Path(tempfile.mkdtemp(prefix="portbench-control-"))
     try:
         inp = make_inputs(cell.config, cell.traffic, seed, work)
+        switches = of_config(cell.config).output
         ref = Reference(inp.gfa, cell.config["preset"],
-                        int(cell.config["threads"]))
+                        int(cell.config["threads"]), switches)
         differ = unjudged = 0
         texts = []
         for path in inp.files:
@@ -57,7 +59,7 @@ def control_reading(cell, seed: int) -> dict:
         s_differ, _, _ = indep.check_sample(
             inp.gfa, cell.config["preset"], sample, texts,
             [read_fasta(p) for p in inp.files],
-            int(cell.config["threads"]))
+            int(cell.config["threads"]), options=switches)
         return {"gaf_reads_differ": differ, "reads_unjudged": unjudged,
                 "sample_reads_differ": s_differ, "reads": sum(inp.reads)}
     finally:

@@ -5,11 +5,12 @@
 
 The run makes its inputs from the seed (a bubble rGFA and a pool of
 query files, under TMPDIR), sets the port up as `map_files(device=
-"cuda")` does (the index, the device front), maps the pool's first file
-to warm every shape the traffic uses, then maps the pool's files one
-after another through `map_reads` for --seconds (a closed loop: each
-file starts when the last one ends, and the last one begun runs to its
-end).  The frozen reference (portbench/ref) then maps each distinct file
+"cuda")` does (the index, the device front, and what the
+configuration's `options` add on top of its preset: options.py), maps
+the pool's first file to warm every shape the traffic uses, then maps
+the pool's files one after another through `map_reads` for --seconds
+(a closed loop: each file starts when the last one ends, and the last
+one begun runs to its end).  The frozen reference (portbench/ref) then maps each distinct file
 on the host, and every read of every file the window completed is held
 to it byte for byte; a sample of the window's queries drawn from the
 seed is held to the independent pure-Python engine (portbench/pyref).
@@ -37,6 +38,7 @@ from typing import Optional
 
 from . import check, indep, tracing
 from .inputs import make_inputs
+from .options import map_options, of_config
 from .ref.mapper import read_fasta
 from .spec import Spec
 
@@ -95,10 +97,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
     from minigraph_tpu_torch.index.midx import build_index
     from minigraph_tpu_torch.mapping import mapper
     from minigraph_tpu_torch.mapping.device_front import DeviceFront
-    from minigraph_tpu_torch.options import (IndexOptions, MapOptions,
-                                             opt_set)
+    from minigraph_tpu_torch import options as port_options
     from minigraph_tpu_torch.utils import native
     cfg = cell.config
+    opts = of_config(cfg)
+    # the device pools follow the run's device, as cli.py has them follow
+    # --device
+    pool_dev = "cpu" if device == "cpu" else "cuda"
+    seed_device0 = dict(mapper.SEED_DEVICE)
     work = Path(tempfile.mkdtemp(prefix="portbench-"))
     try:
         # ---- inputs (the harness's work, not the set-up's)
@@ -120,9 +126,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
             torch.zeros(1, device="cuda")
             torch.cuda.synchronize()
         su["cuda_init_s"] = time.perf_counter() - t
-        io_, mo = IndexOptions(), MapOptions()
-        if opt_set(cfg["preset"], io_, mo) < 0:
-            raise ValueError(f"unknown preset {cfg['preset']!r}")
+        io_, mo = map_options(port_options, cfg["preset"], opts.output)
+        if opts.seed_device:
+            mapper.SEED_DEVICE.update(on=True, device=pool_dev)
         opt = copy.copy(mo)
         t = time.perf_counter()
         g = read_gfa(inp.gfa)
@@ -135,12 +141,19 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         if cuda:
             torch.cuda.synchronize()
         su["front_s"] = time.perf_counter() - t
+        pool = None
+        if opts.gwfa_device:
+            from minigraph_tpu_torch.align.gwfa_device import \
+                DeviceGwfaPool
+            t = time.perf_counter()
+            pool = DeviceGwfaPool(gi, mapper.resolve_device(pool_dev))
+            su["gwfa_pool_s"] = time.perf_counter() - t
         n_threads = int(cfg["threads"])
         stats: dict = {}
         t = time.perf_counter()
         with open(work / "warm.gaf", "w") as out:
             mapper.map_reads(gi, opt, [inp.files[0]], out, n_threads,
-                             front, stats)
+                             front, stats, gwfa_pool=pool)
         su["warm_s"] = time.perf_counter() - t
         setup_s = time.perf_counter() - t_start - gen_s
         log("set-up: " + ", ".join(f"{k} {v:.3f}" for k, v in su.items())
@@ -149,6 +162,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         # ---- the window
         s0 = copy.deepcopy(stats)
         launches0 = dict(kernels.launches)
+        jobs0 = pool.n_jobs if pool is not None else 0
         prof = undo = None
         if trace:
             acts = [torch.profiler.ProfilerActivity.CPU]
@@ -167,7 +181,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
                 t_f = time.perf_counter()
                 with tracing.span("file", trace), open(path, "w") as out:
                     mapper.map_reads(gi, opt, [inp.files[k]], out,
-                                     n_threads, front, stats)
+                                     n_threads, front, stats,
+                                     gwfa_pool=pool)
                 passes.append((k, path))
                 per_file.append((k, round(time.perf_counter() - t_f, 3),
                                  stats.get("n_share_host"),
@@ -199,9 +214,14 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
             f"counts {delta}; stage ms {stage}")
         log("files (pool file, s, host-share reads so far, tail ms so far, "
             f"share): {per_file}")
+        if pool is not None:
+            log(f"gwfa pool: {pool.n_jobs - jobs0} jobs in the window; "
+                f"totals since set-up: jobs {pool.n_jobs}, on the device "
+                f"{pool.n_device}, flagged {pool.n_flagged}, oversize "
+                f"{pool.n_oversize}")
         if cuda:
             log(f"device: {kind}; nvidia-smi: {power_line()}")
-        del front, gi, g
+        del front, gi, g, pool
         gc.collect()
         if cuda:
             torch.cuda.empty_cache()
@@ -209,7 +229,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         # ---- the comparison with the reference
         t = time.perf_counter()
         from .ref.mapper import Reference
-        ref = Reference(inp.gfa, cfg["preset"], n_threads)
+        ref = Reference(inp.gfa, cfg["preset"], n_threads, opts.output)
         want = {k: ref.map_file(inp.files[k]) for k in sorted(
             {k for k, _ in passes})}
         differ = unjudged = lines = 0
@@ -223,7 +243,9 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
             texts.append(got)
         log(f"reference: {len(want)} files mapped on the host, "
             f"{len(passes)} files ({lines} GAF lines) compared in "
-            f"{time.perf_counter() - t:.3f} s")
+            f"{time.perf_counter() - t:.3f} s"
+            + (f"; {ref.n_finished} reads the native batch gave up "
+               "mapped again by the host finish" if opts.cigar else ""))
         del ref, want
 
         # ---- the independent check: a sample held to pyref
@@ -233,7 +255,7 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
                                    int(cell.traffic["check_sample"]))
         s_differ, late, first = indep.check_sample(
             inp.gfa, cfg["preset"], sample, texts,
-            [recs[k] for k, _ in passes], n_threads)
+            [recs[k] for k, _ in passes], n_threads, options=opts.output)
         log(f"pyref: {len(sample) - late} of {len(sample)} sampled queries "
             f"mapped in time and compared in "
             f"{time.perf_counter() - t:.3f} s"
@@ -266,6 +288,8 @@ def run_cell(cell, seed: int, seconds: float, trace: bool,
         res["checks"] = check.check_lines(vals)
         return res
     finally:
+        mapper.SEED_DEVICE.clear()
+        mapper.SEED_DEVICE.update(seed_device0)
         shutil.rmtree(work, ignore_errors=True)
 
 

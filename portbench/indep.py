@@ -11,7 +11,10 @@ query to it byte for byte.
 The index is `pyref`'s too: the graph's minimizers sketched in Python,
 in parallel, once per graph and preset, and kept at a fixed path in the
 checkout (`build/portbench/pyref/`), like a compile cache; the graph is
-the same for every seed of a configuration.
+the same for every seed of a configuration.  pyref maps with the preset
+and the configuration's switches that change the output (`-c`:
+options.py); none of them changes the index, so the cache, keyed by
+the graph, k and w, holds for them too.
 """
 from __future__ import annotations
 
@@ -23,9 +26,11 @@ import os
 import tempfile
 import time
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+
+from .options import map_options
 
 CACHE = Path(__file__).resolve().parents[1] / "build" / "portbench" / "pyref"
 
@@ -58,12 +63,10 @@ def _sketch_one(args):
     return sketch(seq, w, k, rid)
 
 
-def _options(preset: str):
-    from .pyref.options import GGOptions, IndexOptions, MapOptions, opt_set
-    io_, mo = IndexOptions(), MapOptions()
-    if opt_set(preset, io_, mo, GGOptions()) < 0:
-        raise ValueError(f"unknown preset {preset!r}")
-    return io_, mo
+def _options(preset: str, switches: Sequence[str] = ()):
+    """pyref's (IndexOptions, MapOptions) at `preset` and `switches`."""
+    from .pyref import options
+    return map_options(options, preset, switches, options.GGOptions())
 
 
 def sketch_graph(gfa: str, preset: str, n_procs: int) -> Path:
@@ -91,14 +94,14 @@ def sketch_graph(gfa: str, preset: str, n_procs: int) -> Path:
 
 
 def _init(gfa: str, preset: str, sketches: str, rescue: bool,
-          tmp: str) -> None:
+          tmp: str, switches: Sequence[str] = ()) -> None:
     """A worker: the graph, the index from the cached sketches, the
-    options as the preset sets them, the rescue on or off; its query
-    file in `tmp`."""
+    options as the preset and `switches` set them, the rescue on or
+    off; its query file in `tmp`."""
     from .pyref.graph.gfa_io import read_gfa
     from .pyref.index import midx, sketch as sk
     from .pyref.mapping import mapper
-    io_, mo = _options(preset)
+    io_, mo = _options(preset, switches)
     with np.load(sketches) as z:      # each z[key] reads the whole array
         x, y, lens = z["x"], z["y"], z["lens"]
     ends = np.cumsum(lens)
@@ -124,10 +127,12 @@ def _map_one(q: Tuple[str, str]) -> Tuple[str, str]:
 
 def map_queries(gfa: str, preset: str, queries: List[Tuple[str, str]],
                 n_procs: int, rescue: bool = True,
-                seconds: float = SECONDS) -> Dict[str, str]:
+                seconds: float = SECONDS,
+                options: Sequence[str] = ()) -> Dict[str, str]:
     """{name: pyref's GAF text} of each (name, sequence), mapped one at a
-    time in `n_procs` spawned processes, the longest first; a query
-    still unmapped `seconds` after the workers start is left out."""
+    time in `n_procs` spawned processes, the longest first, at `preset`
+    and `options` (the switches that change the output); a query still
+    unmapped `seconds` after the workers start is left out."""
     sketches = str(sketch_graph(gfa, preset, n_procs))
     todo = sorted(queries, key=lambda q: -len(q[1]))
     got: Dict[str, str] = {}
@@ -135,7 +140,8 @@ def map_queries(gfa: str, preset: str, queries: List[Tuple[str, str]],
     with tempfile.TemporaryDirectory(prefix="pyref-") as tmp, \
             mp.get_context("spawn").Pool(
                 min(n_procs, max(1, len(todo))), initializer=_init,
-                initargs=(gfa, preset, sketches, rescue, tmp)) as pool:
+                initargs=(gfa, preset, sketches, rescue, tmp,
+                          tuple(options))) as pool:
         it = pool.imap_unordered(_map_one, todo)
         try:
             for _ in todo:
@@ -167,15 +173,16 @@ def draw_sample(seed: int, passes: List[int], counts: List[int], n: int
 def check_sample(gfa: str, preset: str, sample: List[Tuple[int, int]],
                  pass_text: List[str], pass_recs: List[list],
                  n_procs: int, rescue: bool = True,
-                 seconds: float = SECONDS
+                 seconds: float = SECONDS, options: Sequence[str] = ()
                  ) -> Tuple[int, int, Optional[str]]:
     """(sampled queries whose GAF text differs from pyref's, those pyref
     did not map in time, the first that differs).  pass_text[p] is pass
-    p's GAF output and pass_recs[p] its queries [(name, sequence)]."""
+    p's GAF output and pass_recs[p] its queries [(name, sequence)];
+    pyref maps at `preset` and `options`."""
     from .check import group_by_read
     want = map_queries(gfa, preset, sorted({pass_recs[p][i] for p, i
                                             in sample}), n_procs, rescue,
-                       seconds)
+                       seconds, options)
     differ, late, first = 0, 0, None
     by_pass: Dict[int, Dict[str, str]] = {}
     for p, i in sample:

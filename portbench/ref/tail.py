@@ -4,8 +4,9 @@ A frozen copy of the port's mapping/native_tail.py, cut to the host
 path (items mode, every read collected inside its worker): one call
 maps a batch of reads in csrc/mgt_batch.c, a work-stealing pthread
 loop over the seed collection (mgt_collect), the linear and graph
-chaining with the long-join rescue (mgt_map_tail), mgt_select_chains
-and mgt_format_gaf.
+chaining with the long-join rescue (mgt_map_tail), mgt_select_chains,
+with -c the base-level stage (csrc/mgt_cigar.c: the anchor walk, an
+exact WFA a gap, the ds string) and mgt_format_gaf.
 """
 from __future__ import annotations
 
@@ -17,6 +18,7 @@ from .options import (DBG, MG_M_CIGAR, MG_M_FRAG_MERGE, MG_M_HEAP_SORT,
                        MG_M_NO_COMP_PATH, MG_M_PRINT_2ND, MG_M_RMQ,
                        MG_M_SHOW_UNMAP, MG_M_SPLICE, MG_M_SR,
                        MG_MAX_SHORT_K)
+from .cigar import _es_tables
 from .hashes import expf
 from .native import get_lib
 
@@ -201,8 +203,8 @@ def map_batch_native(gi, opt, items, n_threads: int,
     n = len(items)
     if n == 0:
         return {}
-    if opt.flag & (MG_M_CIGAR | MG_M_FRAG_MERGE) or DBG["flag"]:
-        raise NotImplementedError("the reference maps without -c, "
+    if opt.flag & MG_M_FRAG_MERGE or DBG["flag"]:
+        raise NotImplementedError("the reference maps without "
                                   "fragments and debug dumps")
     is_sr = bool(opt.flag & MG_M_SR)
     is_splice = bool(opt.flag & MG_M_SPLICE)
@@ -272,6 +274,11 @@ def map_batch_native(gi, opt, items, n_threads: int,
                 cptr[6], cptr[7])
     frag_args = (int(bool(opt.flag & MG_M_HEAP_SORT)), None, None)
     cig_args = (0, None)
+    if opt.flag & MG_M_CIGAR:
+        # -c: the workers align and write cg:Z/ds:Z themselves, reading
+        # every segment's fwd/rc bytes through this pointer table (the
+        # cast holds it through the call)
+        cig_args = (1, ct.cast(_es_tables(gi.es)[0], ct.c_void_p))
     total = lib.mgt_map_tail_batch(
         n, max(1, n_threads), P.ctypes.data, PD.ctypes.data,
         mode.ctypes.data, n_a.ctypes.data, axp.ctypes.data,

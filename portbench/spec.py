@@ -7,6 +7,13 @@ name alone: configs/<config>.json, traffic/<traffic>.json and
 metrics/<metric>.py (a module with `read(ctx)`, which returns the
 metric's value or None where it finds nothing to read).  A later cell,
 mix or metric is a new file and a new entry; no code changes.
+
+A configuration file holds the `preset` and may hold `options`: a list
+of minigraph's switches applied on top of it, among `-c`,
+`--gwfa-device` and `--seed-device` (options.py reads it).  The frozen
+reference and pyref take `-c`, which changes the output; the other two
+move the port's work to the card and leave its output as it is, so the
+references take neither.
 """
 from __future__ import annotations
 
